@@ -1,37 +1,67 @@
 #!/usr/bin/env python3
-"""Drive inflatox_torch's main path once on an NVIDIA GPU and check it.
+"""Drive inflatox_torch's main paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device, the CUDA toolkit (nvcc) and this checkout; builds the
-grid-scan kernel (B1) from ``inflatox_torch/csrc`` into
-``build/inflatox_torch_kernels/`` on first use.  Phases, each of which either
+kernels (B1 and B5: the grid-scan library; B6: the solver library) from
+``inflatox_torch/csrc`` into ``build/inflatox_torch_kernels/`` on first use,
+one nvcc per library, all started together.  Phases, each of which either
 passes or ends the script with a nonzero exit:
 
 1. environment: torch, CUDA, nvcc, sympy, card name and power limit;
-2. build: the hyperinflation model through ``models`` → ``Compiler`` →
-   ``GeneralisedAL(device="cuda")``, and the kernel's build time;
+2. build: the hyperinflation, angular and 3-field models through
+   ``models`` → ``Compiler``, ``GeneralisedAL(device="cuda")``, and the
+   kernels' build times;
 3. golden values of tests/test_doc.py (calc_V, calc_H);
-4. the main path: ``complete_analysis`` at 4096² through the default
+4. the grid-scan path: ``complete_analysis`` at 4096² through the default
    engine (kernel B1), held against the plain PyTorch version on the card
    and, for rows 0-63, on the CPU (rtol 5e-10, identical NaN/±inf masks),
    then again at the README's 1000²;
 5. a second model (angular) at 1024², through the same comparisons;
 6. timing at 4096²: CUDA events over chained launches, kernel and plain
    version in turns (plain, kernel, kernel, plain); the kernel's device time
-   from torch.profiler; the user-facing call on the host clock.
+   from torch.profiler; the user-facing call on the host clock;
+7. the solver library's first-use build and ptxas's registers and spills
+   for 2 and 3 fields;
+8. the background path (kernel B6) at cfg5d's full width: hyperinflation,
+   4096 trajectories × 2000 rows, RKF45, through ``solve_eom_batch``;
+   held against the plain version on the card (rtol 1e-12, identical NaN
+   masks) and, for trajectories 0-63, on the CPU; then per-trajectory
+   masses, RK4 at 4096 × 500 and a 3-field model at 1024 × 500;
+9. the on-trajectory path (kernel B5): ``complete_analysis_ot`` and the
+   three single-output kinds over all 8,192,000 solved points of phase 8,
+   against the plain version on the card (rtol 5e-10, identical masks) and,
+   for the first 4096 points, on the CPU;
+10. the basin survey at cfg5e's size (4096 initial conditions × 2000 rows)
+    through the default engine against ``engine="torch"`` on the card;
+11. timing of B6 and B5 against their plain versions (CUDA events, in
+    turns), and their device times from torch.profiler.
 
 The last lines are the kernel table (JSON), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import ast
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-RTOL = 5e-10  # the repo's tolerance for the six analysis maps
+RTOL = 5e-10  # the repo's tolerance for the analysis maps
+RTOL_SOLVER = 1e-12  # kernel B6 against its plain version on the card
+# B6 against the plain version on the CPU.  The CPU's libm (torch's
+# vectorised pow) and CUDA's differ in the last bit now and then; one such
+# bit in a step size moves every later row of that trajectory a little.
+# The times stay close (1.9e-10 relative at cfg5d); so does the state while
+# H > 0, measured against each component's largest value along its
+# trajectory (velocities cross zero); once H < 0 the term -3Hχ pumps every
+# difference up with the velocities (3.2e-3 after 2000 rows)
+RTOL_CPU_TIMES = 1e-8
+RTOL_CPU_PHYSICAL = 1e-6
+RTOL_CPU_ALL = 1e-2
 N_TIMED = 20  # chained calls per timing window of the plain version
 N_TIMED_KERNEL = 200  # chained launches per kernel window (~0.1 s of work)
 DOC_EXTENT = (0.5, 2.5, 0.25, 3.0)  # bench cfg1 extent
@@ -39,6 +69,12 @@ README_EXTENT = (0.0, 2.5, 0.0, 3.141592653589793)
 ANGULAR_EXTENT = (-0.7, 0.7, -0.7, 0.7)  # inside the unit disc
 GOLDEN_V = 1.9166666666666667  # tests/test_doc.py
 GOLDEN_H = [[0.41206897, -1.05517241], [-1.05517241, -0.07873563]]
+B_SOLVE, STEPS = 4096, 2000  # bench cfg5d / cfg5e
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F64_OPS_PER_S = 33.5e12  # H100 SXM f64 outside the tensor cores
+# operations of the complete-analysis point tail (csrc/anguelova.cuh), fabs
+# and comparisons not counted
+TAIL_OPS = 41
 
 
 class SmokeFailure(Exception):
@@ -57,7 +93,7 @@ def run(cmd):
 
 def compare(got, want, rtol=RTOL):
     """(max relative error, max absolute error, share bit-identical) of two
-    map stacks on one device; raises unless the NaN and ±inf masks are
+    tensors on one device; raises unless the NaN and ±inf masks are
     identical and every finite value is within rtol (atol 0)."""
     import torch
 
@@ -67,7 +103,7 @@ def compare(got, want, rtol=RTOL):
     diff = (got - want).abs()
     scale = want.abs()
     check(bool((diff[finite] <= rtol * scale[finite]).all()),
-          f"maps differ beyond rtol {rtol}")
+          f"values differ beyond rtol {rtol}")
     nonzero = finite & (scale > 0)
     rel = (diff[nonzero] / scale[nonzero]).max().item() if nonzero.any() else 0.0
     absolute = diff[finite].max().item() if finite.any() else 0.0
@@ -82,8 +118,8 @@ def nanmax(t):
 
 
 def scan_and_check(al, art, args, extent, n, label):
-    """The main path at n² plus its comparisons; returns (maps, launches,
-    max abs error against the plain version on the card)."""
+    """The grid-scan path at n² plus its comparisons; returns (maps,
+    launches, max abs error against the plain version on the card)."""
     import torch
 
     from inflatox_torch.ops import cuda_kernels
@@ -117,10 +153,10 @@ def scan_and_check(al, art, args, extent, n, label):
     return maps, launches, absolute
 
 
-def time_ms(fn, n=N_TIMED):
+def time_ms(fn, n=N_TIMED, warmup=3):
     import torch
 
-    for _ in range(3):  # warm-up
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -133,6 +169,234 @@ def time_ms(fn, n=N_TIMED):
     return start.elapsed_time(stop) / n
 
 
+def in_turns(kernel, plain, n_kernel, n_plain, plain_warmup=3):
+    """Mean ms of kernel and plain version, timed plain, kernel, kernel,
+    plain; returns (kernel ms, plain ms, the four windows)."""
+    plain_a = time_ms(plain, n_plain, plain_warmup)
+    kernel_a = time_ms(kernel, n_kernel)
+    kernel_b = time_ms(kernel, n_kernel)
+    plain_b = time_ms(plain, n_plain, 0)
+    return (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2, (kernel_a, kernel_b,
+                                                                 plain_a, plain_b)
+
+
+def profiled_ms(fn, name, n):
+    """Device time per launch of the kernels whose name holds ``name``, from
+    torch.profiler, as text: "not measured" when the trace has no device
+    time for them, with the events the trace does hold."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages if name in e.key]
+    device_us = sum(getattr(e, "device_time_total", 0) for e in events)
+    count = sum(e.count for e in events)
+    if count and device_us:
+        return f"{device_us / count / 1e3:.4f} ms"
+    held = "; ".join(f"{e.key[:60]} x{e.count} {getattr(e, 'device_time_total', 0):.0f} us"
+                     for e in list(averages)[:4])
+    return f"not measured (trace holds: {held or 'nothing'})"
+
+
+def bound(n_bytes, n_ops):
+    """(least ms, what bounds it) for moving n_bytes and doing n_ops f64
+    operations on one H100."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------------------- #
+# operation counts, from the lowered model functions the kernels translate  #
+# ------------------------------------------------------------------------- #
+
+
+def _node_ops(node):
+    """f64 operations one evaluation of an expression node does: each binary
+    operation and each library call counts one, an integer power its
+    multiplies by repeated squaring; negations and subexpressions of
+    constants only are not counted (the compiler folds them)."""
+    if not any(isinstance(n, (ast.Name, ast.Subscript)) for n in ast.walk(node)):
+        return 0
+    if isinstance(node, ast.BinOp):
+        return 1 + _node_ops(node.left) + _node_ops(node.right)
+    if isinstance(node, ast.UnaryOp):
+        return _node_ops(node.operand)
+    if isinstance(node, ast.Call):
+        func = node.func
+        if isinstance(func, ast.Name) and func.id == "_ipow":
+            exponent = abs(ast.literal_eval(node.args[1]))
+            mults = exponent.bit_length() - 1 + bin(exponent).count("1") - 1
+            negative = ast.literal_eval(node.args[1]) < 0
+            return _node_ops(node.args[0]) + mults + int(negative)
+        return int(not (isinstance(func, ast.Name) and func.id == "float")) + sum(
+            _node_ops(a) for a in node.args)
+    return 0
+
+
+def lowered_ops(lowered, outputs=None):
+    """Operations of a lowered function: its CSE assignments and the
+    returned outputs listed in ``outputs`` (all when None)."""
+    (fn,) = ast.parse(lowered.source).body
+    total = 0
+    for stmt in fn.body:
+        if isinstance(stmt, ast.Assign):
+            total += _node_ops(stmt.value)
+        elif isinstance(stmt, ast.Return):
+            value = stmt.value
+            elts = value.elts if isinstance(value, ast.Tuple) else [value]
+            chosen = elts if outputs is None else [elts[k] for k in outputs]
+            total += sum(_node_ops(e) for e in chosen)
+    return total
+
+
+def point_ops(art):
+    """Operations per point of the complete-analysis kind (B1, B5)."""
+    return (lowered_ops(art.potential) + lowered_ops(art._hesse, (0, 2, 3))
+            + lowered_ops(art.grad_square) + TAIL_OPS)
+
+
+def attempt_ops(art, solver):
+    """Operations of one adaptive attempt of kernel B6 (csrc/solver.cuh)."""
+    from inflatox_torch.ops import cuda_solver as cs
+
+    n = art.n_fields
+    ny = 2 * n + 1
+    deriv = lowered_ops(art.eom) + lowered_ops(art.eom_hdot) + 2 * n + 1
+
+    def step(a, *bs):
+        nonzero = int((a != 0).sum()) + sum(int((b != 0).sum()) for b in bs)
+        return a.shape[0] * deriv + nonzero * (1 + 2 * ny)
+
+    if solver == "rkf":
+        body = step(cs._RKF_A, cs._RKF_B5, cs._RKF_B4)
+    else:
+        body = 3 * step(cs._RK4_A, cs._RK4_B) + 1
+    # error norm, sqrt, controller (reciprocal, product, pow, ratio), t, dt
+    return body + 3 * ny - 1 + 1 + 4 + 2
+
+
+# ------------------------------------------------------------------------- #
+# the background path                                                       #
+# ------------------------------------------------------------------------- #
+
+
+def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
+    """One batched solve through ``background.solve_eom_batch`` on the
+    card, counted, then kernel vs plain version on the card and, for
+    trajectories 0-63, on the CPU.  Returns a dict of what the timing and
+    the kernel table need."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch import background
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
+
+    batch, n = f0.shape
+    d0 = np.zeros_like(f0)
+    cuda_solver.LAUNCHES = 0
+    t = time.perf_counter()
+    rows_np, times_np = background.solve_eom_batch(art, pars, steps, f0, d0, max_err=max_err,
+                                                   solver=solver, return_time=True)
+    host_s = time.perf_counter() - t
+    launches = cuda_solver.LAUNCHES
+    check(launches > 0, f"{label}: the solve launched no kernel")
+    check(rows_np.shape == (batch, steps, 2 * n + 1) and times_np.shape == (batch, steps),
+          f"{label}: rows {rows_np.shape}, times {times_np.shape}")
+    check(bool(np.array_equal(rows_np[:, 0, :n], f0)), f"{label}: row 0 is not the initial state")
+    ok = np.isfinite(rows_np).all(axis=(1, 2))
+    check(ok.mean() > 0.5, f"{label}: only {ok.mean():.3f} of the trajectories are finite")
+    check(bool((np.diff(times_np[ok], axis=1) >= 0).all() and (times_np[ok, -1] > 0).all()),
+          f"{label}: times do not increase")
+    check(bool((rows_np[ok, -1, 2 * n] < rows_np[ok, 0, 2 * n]).all()),
+          f"{label}: H does not decrease")
+
+    device = torch.device("cuda", 0)
+    ft = torch.tensor(f0, device=device)
+    dt = torch.zeros_like(ft)
+    pt = torch.tensor(np.asarray(pars, dtype=np.float64), device=device)
+    k_rows, k_times = solve_cuda(art, pt, steps, ft, dt, max_err, solver)
+    check(np.array_equal(k_rows.cpu().numpy(), rows_np, equal_nan=True),
+          f"{label}: the user-facing call differs from the kernel's own")
+    t = time.perf_counter()
+    p_rows, p_times, attempts = solve_torch(art, pt, steps, ft, dt, max_err, solver,
+                                            count_attempts=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rel, absolute, same = compare(torch.cat([k_rows, k_times[..., None]], -1),
+                                  torch.cat([p_rows, p_times[..., None]], -1), RTOL_SOLVER)
+    mean_attempts = attempts.sum().item() / (batch * (steps - 1))
+    print(f"{label}: launches={launches} finite trajectories {ok.mean():.4f}; kernel vs "
+          f"plain torch on the card: max_rel={rel:.3e} max_abs={absolute:.3e} "
+          f"bit_identical={same:.6f}; attempts per row mean {mean_attempts:.4f}, "
+          f"most for one trajectory {attempts.max().item()}; host clock: user-facing "
+          f"call {host_s:.3f} s, plain version {plain_s:.2f} s")
+    m = 64
+    cpu_rows, cpu_times = solve_torch(art, pt[:m].cpu() if pt.ndim == 2 else pt.cpu(),
+                                      steps, ft[:m].cpu(), dt[:m].cpu(), max_err, solver)
+    kc, kt = k_rows[:m].cpu(), k_times[:m].cpu()
+    rel_t, _, _ = compare(kt, cpu_times, RTOL_CPU_TIMES)
+    check(torch.equal(torch.isnan(kc), torch.isnan(cpu_rows)), f"{label}: CPU NaN masks differ")
+    physical = (kc[..., 2 * n] > 0) & (cpu_rows[..., 2 * n] > 0)
+    diff = (kc - cpu_rows).abs().nan_to_num()
+    scale = cpu_rows.abs().nan_to_num().amax(dim=1, keepdim=True).clamp_min(1e-300)
+    scaled = diff / scale  # against each component's largest value on its trajectory
+    rel_p = scaled[physical].max().item() if physical.any() else 0.0
+    rel_c = scaled.max().item()
+    check(rel_p <= RTOL_CPU_PHYSICAL and rel_c <= RTOL_CPU_ALL,
+          f"{label}: kernel vs CPU state {rel_p:.3e} while H > 0, {rel_c:.3e} in all rows")
+    print(f"{label}: kernel trajectories 0-{m - 1} vs plain torch on the CPU: times "
+          f"max_rel={rel_t:.3e}; state, relative to each component's largest value, while "
+          f"H > 0 ({physical.double().mean().item():.4f} of the rows) {rel_p:.3e}, in all "
+          f"rows {rel_c:.3e}; bit_identical={(kc == cpu_rows).double().mean().item():.6f}")
+    n_bytes = k_rows.numel() * 8 + k_times.numel() * 8 + 2 * ft.numel() * 8 + pt.numel() * 8
+    n_ops = attempt_ops(art, solver) * attempts.sum().item()
+    return {"launches": launches, "max_abs": absolute, "rows": k_rows, "times": k_times,
+            "args": (pt, steps, ft, dt, max_err, solver), "bound": bound(n_bytes, n_ops),
+            "attempts": attempts, "mean_attempts": mean_attempts, "n_ops": n_ops,
+            "n_bytes": n_bytes}
+
+
+def points_and_check(al, art, args, pts, label):
+    """The four on-trajectory scans through ``GeneralisedAL``, counted,
+    then kernel vs plain version on the card and, for the first 4096
+    points, on the CPU.  Returns (launches, max abs error)."""
+    import numpy as np
+
+    from inflatox_torch.ops import cuda_kernels
+    from inflatox_torch.ops.cuda_kernels import scan_points_cuda, scan_points_torch
+
+    cuda_kernels.LAUNCHES = 0
+    ot = al.complete_analysis_ot(args, pts, progress=False)
+    singles = {kind: getattr(al, kind + "_ot")(args, pts, progress=False)
+               for kind in ("consistency", "consistency_rapidturn", "epsilon_v")}
+    launches = cuda_kernels.LAUNCHES
+    check(launches > 0, f"{label}: the on-trajectory scans launched no kernel")
+    n = pts.shape[0]
+    check(len(ot) == 6 and all(o.shape == (n, 1) for o in ot), f"{label}: output shapes")
+    check(all(s.shape == (n,) for s in singles.values()), f"{label}: single-kind shapes")
+    check(np.nanmax(ot[0]) <= 1.0 and np.isfinite(ot[1]).mean() > 0.5,
+          f"{label}: consistency above 1 or too few finite ε_V")
+    worst = 0.0
+    for kind, user in [("complete_analysis", np.concatenate(ot, axis=1).T), *singles.items()]:
+        got = scan_points_cuda(art, kind, args, pts)
+        check(np.array_equal(got.cpu().numpy().reshape(user.shape), user, equal_nan=True),
+              f"{label} {kind}: the user-facing call differs from the kernel's own")
+        rel, absolute, same = compare(got, scan_points_torch(art, kind, args, pts))
+        worst = max(worst, absolute)
+        cpu_rel, _, cpu_same = compare(got[:, :4096].cpu(),
+                                       scan_points_torch(art, kind, args, pts[:4096].cpu()))
+        print(f"{label} {kind}: kernel vs plain torch on the card: max_rel={rel:.3e} "
+              f"max_abs={absolute:.3e} bit_identical={same:.6f}; first 4096 points vs "
+              f"the CPU: max_rel={cpu_rel:.3e} bit_identical={cpu_same:.6f}")
+    return launches, worst
+
+
 def main() -> int:
     import torch
 
@@ -141,12 +405,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
     import sympy
 
     import inflatox_torch
+    from inflatox_torch import background
     from inflatox_torch.consistency_conditions import GeneralisedAL
-    from inflatox_torch.ops.build import find_nvcc, load_grid_scan
-    from inflatox_torch.ops.cuda_kernels import scan_cuda, scan_torch
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.build import find_nvcc, load_grid_scan, load_solver
+    from inflatox_torch.ops.cuda_kernels import (
+        scan_cuda,
+        scan_points_cuda,
+        scan_points_torch,
+        scan_torch,
+    )
+    from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
 
     # 1. environment
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -159,16 +432,41 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s))")
     device = torch.device("cuda", 0)
 
-    # 2. build: model, lowering, kernel
+    # 2. build: models, lowering, then every kernel library at once
     t0 = time.perf_counter()
     model, args = inflatox_torch.models.hyperinflation()
     art = inflatox_torch.Compiler(model, silent=True).compile()
     t1 = time.perf_counter()
-    load_grid_scan(art.cuda_source())
+    ang_model, ang_args = inflatox_torch.models.angular()
+    ang = inflatox_torch.Compiler(ang_model, silent=True).compile()
+    a3, b3, c3, m3 = sympy.symbols("a3 b3 c3 m3")
+    three_model = inflatox_torch.InflationModelBuilder.new(
+        [a3, b3, c3], [[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+        sympy.Rational(1, 2) * m3**2 * (a3**2 + 2 * b3**2 + 3 * c3**2), silent=True,
+    ).build(guesses=[[0, 1, 0], [0, 0, 1]])
+    three = inflatox_torch.Compiler(three_model, silent=True).compile()
     t2 = time.perf_counter()
+
+    def timed(load, source):
+        t = time.perf_counter()
+        lib = load(source)
+        return lib, time.perf_counter() - t
+
+    jobs = {
+        "B1/B5 hyperinflation": (load_grid_scan, art.cuda_source()),
+        "B6 hyperinflation": (load_solver, art.cuda_solver_source()),
+        "B1/B5 angular": (load_grid_scan, ang.cuda_source()),
+        "B6 3-field": (load_solver, three.cuda_solver_source()),
+    }
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    t3 = time.perf_counter()
     al = GeneralisedAL(art, device=device, validation_seed=7)
-    print(f"build: hyperinflation model {t1 - t0:.2f} s, kernel B1 first use "
-          f"(nvcc + load) {t2 - t1:.2f} s")
+    print(f"build: hyperinflation model {t1 - t0:.2f} s, angular and 3-field models "
+          f"{t2 - t1:.2f} s; kernel B1 first use (nvcc + load) "
+          f"{built['B1/B5 hyperinflation'][1]:.2f} s; all four kernel libraries, "
+          f"built at once, {t3 - t2:.2f} s")
 
     # 3. golden values
     v = al.calc_V([2.0, -2.0], [1.0])
@@ -178,14 +476,12 @@ def main() -> int:
               for a in range(2) for b in range(2)), f"calc_H = {h.tolist()}")
     print(f"golden: calc_V([2,-2],[1]) = {v!r}, calc_H = {h.tolist()}")
 
-    # 4. the main path at the bench size, then at the README's
-    _, launches, max_abs = scan_and_check(al, art, args, DOC_EXTENT, 4096,
-                                          "hyperinflation 4096²")
+    # 4. the grid-scan path at the bench size, then at the README's
+    _, b1_launches, b1_max_abs = scan_and_check(al, art, args, DOC_EXTENT, 4096,
+                                                "hyperinflation 4096²")
     scan_and_check(al, art, args, README_EXTENT, 1000, "hyperinflation 1000² (README)")
 
     # 5. a second model
-    ang_model, ang_args = inflatox_torch.models.angular()
-    ang = inflatox_torch.Compiler(ang_model, silent=True).compile()
     ang_al = GeneralisedAL(ang, device=device, validate_basis=False)
     ang_al.validate_basis_on_domain(ang_args, [-0.7, -0.7], [0.7, 0.7], N=63)
     scan_and_check(ang_al, ang, ang_args, ANGULAR_EXTENT, 1024, "angular 1024²")
@@ -199,37 +495,27 @@ def main() -> int:
     def plain():
         scan_torch(art, "complete_analysis", args, DOC_EXTENT, (n, n), device)
 
-    plain_a = time_ms(plain)
-    kernel_a = time_ms(kernel, N_TIMED_KERNEL)
-    kernel_b = time_ms(kernel, N_TIMED_KERNEL)
-    plain_b = time_ms(plain)
-    ms = (kernel_a + kernel_b) / 2
-    plain_ms = (plain_a + plain_b) / 2
+    b1_ms, b1_plain_ms, (kernel_a, kernel_b, plain_a, plain_b) = in_turns(
+        kernel, plain, N_TIMED_KERNEL, N_TIMED)
     print(f"timing hyperinflation complete_analysis {n}² f64 on {card}: "
-          f"kernel B1 {ms:.4f} ms/launch ({n * n / ms * 1e3:.4e} points/s; "
+          f"kernel B1 {b1_ms:.4f} ms/launch ({n * n / b1_ms * 1e3:.4e} points/s; "
           f"windows {kernel_a:.4f}, {kernel_b:.4f}; {N_TIMED_KERNEL} chained "
-          f"launches each), plain torch {plain_ms:.4f} ms "
-          f"({n * n / plain_ms * 1e3:.4e} points/s; windows {plain_a:.4f}, "
+          f"launches each), plain torch {b1_plain_ms:.4f} ms "
+          f"({n * n / b1_plain_ms * 1e3:.4e} points/s; windows {plain_a:.4f}, "
           f"{plain_b:.4f}; {N_TIMED} chained calls each)")
+    b1_bound = bound(6 * n * n * 8, point_ops(art) * n * n)
+    print(f"kernel B1 bound at {n}²: {b1_bound[0]:.4f} ms ({b1_bound[1]}; "
+          f"{6 * n * n * 8} bytes written, {point_ops(art)} f64 operations per point)")
 
     # the kernel's own device time, from the profiler's trace, and the
     # wrapper's host time per call (enqueue only)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(N_TIMED):
-            kernel()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "grid_scan_kernel" in e.key]
-    device_us = sum(getattr(e, "device_time_total", 0) for e in events)
-    count = sum(e.count for e in events)
+    traced = profiled_ms(kernel, "grid_scan_kernel", N_TIMED)
     t = time.perf_counter()
     for _ in range(N_TIMED):
         kernel()
     enqueue_ms = (time.perf_counter() - t) * 1e3 / N_TIMED
     torch.cuda.synchronize()
-    traced = f"{device_us / count / 1e3:.4f} ms" if count and device_us else "not measured"
-    print(f"kernel B1 device time per launch (torch.profiler, {count} launches): "
+    print(f"kernel B1 device time per launch (torch.profiler, {N_TIMED} launches): "
           f"{traced}; wrapper host time per call (enqueue): {enqueue_ms:.4f} ms")
 
     # the user-facing call, host clock: numpy maps (device → host copy of
@@ -248,16 +534,138 @@ def main() -> int:
           f"{host_ms('f64'):.3f} ms, output='f64_device' "
           f"{host_ms('f64_device'):.3f} ms (host clock, median of 3)")
 
-    print(json.dumps({"kernels": [{
-        "name": "grid_scan_b1",
-        "route": "cuda",
-        "source": "inflatox_torch/csrc/grid_scan.cu",
-        "replaces": "inflatox_tpu/ops/pallas_kernels.py:388",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 7. the solver library: its first-use build, registers and spills
+    print(f"build: kernel B6 first use (nvcc + load), hyperinflation "
+          f"{built['B6 hyperinflation'][1]:.2f} s, 3-field {built['B6 3-field'][1]:.2f} s")
+    for name in ("B6 hyperinflation", "B6 3-field"):
+        lib = built[name][0]
+        report = [line.strip() for line in lib.build_log.read_text().splitlines()
+                  if "registers" in line or "spill" in line or "Compiling entry" in line]
+        print(f"ptxas, {name} (nf={lib.inflx_n_fields()}): " + " | ".join(report))
+
+    # 8. the background path at cfg5d's full width
+    rng = np.random.default_rng(0)
+    f0 = np.stack([rng.uniform(1.5, 2.5, B_SOLVE), rng.uniform(1.5, 2.5, B_SOLVE)], 1)
+    rkf = solve_and_check(art, args, f0, STEPS, "rkf",
+                          f"B6 rkf hyperinflation {B_SOLVE}x{STEPS}")
+    masses = np.linspace(0.5, 2.0, B_SOLVE)[:, None]
+    solve_and_check(art, masses, f0, STEPS, "rkf",
+                    f"B6 rkf hyperinflation {B_SOLVE}x{STEPS}, per-trajectory masses")
+    rk4 = solve_and_check(art, args, f0, 500, "rk4", f"B6 rk4 hyperinflation {B_SOLVE}x500")
+    f3 = np.random.default_rng(2).uniform(1.5, 2.5, (1024, 3))
+    solve_and_check(three, np.array([1.0]), f3, 500, "rkf", "B6 rkf 3-field 1024x500")
+
+    # 9. the on-trajectory path over every solved point of phase 8
+    pts = rkf["rows"][..., :2].reshape(-1, 2)
+    b5_launches, b5_max_abs = points_and_check(
+        al, art, args, pts, f"B5 hyperinflation {pts.shape[0]} solved points")
+
+    # 10. the basin survey at cfg5e's size
+    rng = np.random.default_rng(1)
+    f0s = np.stack([rng.uniform(1.5, 2.5, B_SOLVE), rng.uniform(1.5, 2.5, B_SOLVE)], 1)
+    cuda_solver.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
+                                                  max_err=1e-6, chunk=B_SOLVE)
+    survey_s = time.perf_counter() - t
+    check(cuda_solver.LAUNCHES > 0, "survey: no kernel launched")
+    t = time.perf_counter()
+    plain_survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
+                                                        max_err=1e-6, chunk=B_SOLVE,
+                                                        engine="torch")
+    plain_survey_s = time.perf_counter() - t
+    for key in ("N_inflation", "H_end", "x_end", "N_span"):
+        compare(torch.from_numpy(survey[key]), torch.from_numpy(plain_survey[key]),
+                RTOL_SOLVER)
+    check(np.array_equal(survey["ended"], plain_survey["ended"]), "survey: ended differs")
+    check(survey["N_inflation"].shape == (B_SOLVE,) and survey["x_end"].shape == (B_SOLVE, 2),
+          "survey: output shapes")
+    print(f"basin survey hyperinflation {B_SOLVE}x{STEPS} on {card}: "
+          f"{survey_s:.3f} s host clock ({B_SOLVE / survey_s:.1f} initial conditions/s), "
+          f"{cuda_solver.LAUNCHES} kernel launch(es); ended {survey['ended'].mean():.4f}, "
+          f"median N_inflation {np.nanmedian(survey['N_inflation']):.4f}; all five outputs "
+          f"equal engine='torch' on the card ({plain_survey_s:.2f} s)")
+
+    # 11. timing of B6 and B5, in turns
+    def solver_kernel():
+        solve_cuda(art, *rkf["args"])
+
+    def solver_plain():
+        solve_torch(art, *rkf["args"])
+
+    single_ms = time_ms(solver_kernel, 1, 1)
+    n_solver = max(3, min(100, int(500 / single_ms)))
+    b6_ms, b6_plain_ms, windows = in_turns(solver_kernel, solver_plain, n_solver, 1, 0)
+    b6_traced = profiled_ms(solver_kernel, "solve_kernel", 3)
+    pt, steps, ft, dt, max_err, _ = rkf["args"]
+    one_ms = time_ms(lambda: solve_cuda(art, pt, steps, ft[:1], dt[:1], max_err, "rkf"),
+                     max(3, min(100, int(500 / single_ms))), 1)
+    latency_us = one_ms * 1e3 / rkf["attempts"][0].item()
+    chain_ms = (STEPS - 1) * rkf["mean_attempts"] * latency_us / 1e3
+    print(f"timing B6 rkf hyperinflation {B_SOLVE}x{STEPS} on {card}: kernel {b6_ms:.4f} ms "
+          f"({B_SOLVE / b6_ms * 1e3:.1f} trajectories/s; windows {windows[0]:.4f}, "
+          f"{windows[1]:.4f}; {n_solver} chained launches each; torch.profiler "
+          f"{b6_traced}), plain torch "
+          f"{b6_plain_ms:.1f} ms (windows {windows[2]:.1f}, {windows[3]:.1f}); bound "
+          f"{rkf['bound'][0]:.4f} ms ({rkf['bound'][1]}; {rkf['n_bytes']} bytes, "
+          f"{rkf['n_ops']:.4e} f64 operations, {attempt_ops(art, 'rkf')} per attempt); "
+          f"serial chain: trajectory 0 alone {one_ms:.4f} ms for "
+          f"{rkf['attempts'][0].item()} attempts, {latency_us:.4f} us per attempt, × "
+          f"{STEPS - 1} rows × {rkf['mean_attempts']:.4f} mean attempts = {chain_ms:.4f} ms")
+
+    def rk4_kernel():
+        solve_cuda(art, *rk4["args"])
+
+    def rk4_plain():
+        solve_torch(art, *rk4["args"])
+
+    rk4_single = time_ms(rk4_kernel, 1, 1)
+    n_rk4 = max(3, min(100, int(500 / rk4_single)))
+    rk4_ms, rk4_plain_ms, windows = in_turns(rk4_kernel, rk4_plain, n_rk4, 1, 0)
+    print(f"timing B6 rk4 hyperinflation {B_SOLVE}x500 on {card}: kernel {rk4_ms:.4f} ms "
+          f"(windows {windows[0]:.4f}, {windows[1]:.4f}; {n_rk4} chained launches each), "
+          f"plain torch {rk4_plain_ms:.1f} ms; bound {rk4['bound'][0]:.4f} ms "
+          f"({rk4['bound'][1]})")
+
+    def points_kernel():
+        scan_points_cuda(art, "complete_analysis", args, pts)
+
+    def points_plain():
+        scan_points_torch(art, "complete_analysis", args, pts)
+
+    b5_ms, b5_plain_ms, windows = in_turns(points_kernel, points_plain, N_TIMED_KERNEL,
+                                           N_TIMED)
+    b5_traced = profiled_ms(points_kernel, "points_scan_kernel", N_TIMED)
+    n_pts = pts.shape[0]
+    b5_bound = bound(n_pts * (16 + 6 * 8), point_ops(art) * n_pts)
+    print(f"timing B5 complete_analysis at {n_pts} points on {card}: kernel {b5_ms:.4f} ms "
+          f"({n_pts / b5_ms * 1e3:.4e} points/s; windows {windows[0]:.4f}, "
+          f"{windows[1]:.4f}; torch.profiler {b5_traced}), plain torch "
+          f"{b5_plain_ms:.4f} ms (windows {windows[2]:.4f}, {windows[3]:.4f}); bound "
+          f"{b5_bound[0]:.4f} ms ({b5_bound[1]}; {n_pts * 64} bytes, "
+          f"{point_ops(art)} f64 operations per point)")
+
+    def row(name, source, replaces, launches, max_abs, ms, plain_ms, bound_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max_abs, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",
+            "inflatox_tpu/ops/pallas_kernels.py:388", b1_launches, b1_max_abs, b1_ms,
+            b1_plain_ms, b1_bound),
+        row("points_scan_b5", "inflatox_torch/csrc/grid_scan.cu",
+            "inflatox_tpu/ops/pallas_kernels.py:1055", b5_launches, b5_max_abs, b5_ms,
+            b5_plain_ms, b5_bound),
+        row("solver_b6_rkf", "inflatox_torch/csrc/solver.cu",
+            "inflatox_tpu/ops/pallas_solver.py:173", rkf["launches"], rkf["max_abs"], b6_ms,
+            b6_plain_ms, rkf["bound"]),
+        row("solver_b6_rk4", "inflatox_torch/csrc/solver.cu",
+            "inflatox_tpu/ops/pallas_solver.py:173", rk4["launches"], rk4["max_abs"], rk4_ms,
+            rk4_plain_ms, rk4["bound"]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

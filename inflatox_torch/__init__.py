@@ -9,9 +9,13 @@ the reference).  The public surface is the same:
 >>> artifact = inflatox.Compiler(model).compile()
 >>> al = inflatox.consistency_conditions.GeneralisedAL(artifact, device="cuda")
 >>> maps = al.complete_analysis(args, x0a, x0b, x1a, x1b)
+>>> rows, times = inflatox.background.solve_eom_batch(
+...     artifact, args, steps, fields0, derivs0, return_time=True)
+>>> ot = al.complete_analysis_ot(args, rows[0, :, :2])
 
 Every tensor is float64 and every device is explicit: ``GeneralisedAL``
-takes ``device=`` and never moves work to another device on its own.  This
+and the solvers in ``background`` take ``device=`` and never move work to
+another device on their own.  This
 package imports neither ``jax`` nor ``inflatox_tpu``.
 """
 
@@ -27,6 +31,7 @@ from .compiler import CompilationArtifact, CompiledModel, Compiler
 from .symbolic import InflationModel, InflationModelBuilder
 from .version import __version__
 
+from . import background
 from . import consistency_conditions
 from . import models
 
@@ -36,6 +41,7 @@ __all__ = [
     "Compiler",
     "InflationModel",
     "InflationModelBuilder",
+    "background",
     "consistency_conditions",
     "models",
 ]

@@ -1,0 +1,332 @@
+"""Background equation-of-motion solver: batched adaptive Runge-Kutta.
+
+The port of ``inflatox_tpu/background.py`` (reference:
+``background.solve_eom``, background.py:30-49, driving the Rust
+``RKNSolver``, background_solver.rs:72-336), with the JAX package's
+semantics and documented divergences from the reference:
+
+* the integrated system is the multi-field background EoM
+
+      φ'^a = χ^a,   χ'^a = −eom_a(φ, χ) − 3 H χ^a,   H' = −½ G_ab χ^a χ^b
+
+  with H initialised from the Friedmann constraint ``eom_h``;
+* each output row records the state after one accepted adaptive step; row
+  0 holds the initial state; step control starts at dt = 1e-10, rejects
+  when err/max_err > 1.1 and rescales dt by (max_err/err)^(1/(s+1));
+* textbook Butcher tableaus (the port's copy is in
+  :mod:`inflatox_torch.ops.cuda_solver`, beside the plain version and the
+  kernel that use it); ``solver="rk4"`` is classical RK4 with
+  step-doubling error control.
+
+Every solve runs kernel B6 (:mod:`inflatox_torch.ops.cuda_solver`), the
+hand-written CUDA solver, on a CUDA device, or its plain PyTorch version.
+Devices are explicit: every entry takes ``device="cuda"`` by default and
+``engine=None`` (``"cuda"`` on a CUDA device, ``"torch"`` on a CPU device),
+``"cuda"`` or ``"torch"``.  ``solver="rkf"`` and ``"rk4"`` both run in the
+kernel.  One divergence from the JAX package: an attempt with a non-finite
+dt is accepted (the JAX while loop never ends there; see
+``csrc/solver.cuh``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .compiler import CompiledModel
+from .ops.cuda_solver import solve_cuda, solve_torch
+from .utils.devices import resolve_device, resolve_engine
+from .utils.errors import ShapeError
+
+__all__ = ["solve_eom", "solve_eom_batch", "survey_initial_conditions", "efolds"]
+
+
+def _check_solver(solver, mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharding a batch over devices) is not ported yet: "
+            "ROADMAP A10 brings it with torch.distributed"
+        )
+    if solver == "rkf_pallas":
+        raise ValueError(
+            'solver="rkf_pallas" is the JAX package\'s TPU kernel; in the '
+            'PyTorch port solver="rkf" runs kernel B6 (and "rk4" too) on a '
+            "CUDA device"
+        )
+    if solver not in ("rk4", "rkf"):
+        raise ValueError(f'unknown solver {solver!r}; expected "rk4" or "rkf"')
+
+
+def _check_batch(artifact, pars, fields_init, derivatives_init):
+    """The JAX package's shape checks of a batched solve (ShapeError)."""
+    n = artifact.n_fields
+    fields_init = np.asarray(fields_init, dtype=float)
+    derivatives_init = np.asarray(derivatives_init, dtype=float)
+    pars = np.asarray(pars, dtype=float)
+    if fields_init.ndim != 2 or fields_init.shape[1] != n:
+        raise ShapeError(
+            (-1, n), fields_init.shape,
+            "batched initial conditions must be (B, n_fields)",
+        )
+    if derivatives_init.shape != fields_init.shape:
+        raise ShapeError(
+            fields_init.shape, derivatives_init.shape,
+            "derivatives_init must match fields_init (B, n_fields)",
+        )
+    if pars.ndim == 2 and pars.shape != (fields_init.shape[0], artifact.n_parameters):
+        raise ShapeError(
+            (fields_init.shape[0], artifact.n_parameters), pars.shape,
+            "per-trajectory parameters must be (B, n_parameters)",
+        )
+    if pars.ndim == 1 and pars.shape != (artifact.n_parameters,):
+        raise ShapeError(
+            (artifact.n_parameters,), pars.shape,
+            "shared parameters must be (n_parameters,)",
+        )
+    return pars, fields_init, derivatives_init
+
+
+def _solve_batch_device(artifact, pars, steps, fields_init, derivatives_init,
+                        max_err, solver, device, engine):
+    """Batched solve returning (rows, times) tensors left on ``device`` —
+    they feed on-device reductions.  Inputs must be pre-validated."""
+    solve = solve_cuda if engine == "cuda" else solve_torch
+
+    def tensor(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=device)
+
+    return solve(artifact, tensor(pars), int(steps), tensor(fields_init),
+                 tensor(derivatives_init), max_err, solver)
+
+
+def _host(rows, times, return_time):
+    rows = rows.cpu().numpy()
+    if return_time:
+        return rows, times.cpu().numpy()
+    return rows
+
+
+def solve_eom(
+    artifact: CompiledModel,
+    pars,
+    steps: int,
+    fields_init,
+    derivatives_init,
+    max_err: float = 1e-6,
+    solver: str = "rk4",
+    return_time: bool = False,
+    device="cuda",
+    engine: str | None = None,
+):
+    """Integrate the background EoM for one trajectory.
+
+    Args mirror reference background.py:30-38.  Returns a (steps, 2n+1)
+    array: fields, field derivatives, Hubble parameter per row; row 0 is the
+    initial state with H from the Friedmann constraint.  With
+    ``return_time=True`` also returns the (steps,) array of physical times
+    of each row.  ``device``/``engine`` as in :func:`solve_eom_batch`."""
+    n = artifact.n_fields
+    fields_init = np.asarray(fields_init, dtype=float)
+    derivatives_init = np.asarray(derivatives_init, dtype=float)
+    pars = np.asarray(pars, dtype=float)
+    if fields_init.shape != (n,) or derivatives_init.shape != (n,):
+        raise ShapeError(
+            (n,), fields_init.shape, "initial conditions must have one entry per field"
+        )
+    if pars.shape != (artifact.n_parameters,):
+        raise ShapeError(
+            (artifact.n_parameters,), pars.shape,
+            f'model "{artifact.model_name}" has {artifact.n_parameters} parameters',
+        )
+    _check_solver(solver, None)
+    device = resolve_device(device)
+    engine = resolve_engine(engine, device, "kernel B6")
+    rows, times = _solve_batch_device(
+        artifact, pars, steps, fields_init[None], derivatives_init[None],
+        max_err, solver, device, engine,
+    )
+    return _host(rows[0], times[0], return_time)
+
+
+def solve_eom_batch(
+    artifact: CompiledModel,
+    pars,
+    steps: int,
+    fields_init,
+    derivatives_init,
+    max_err: float = 1e-6,
+    solver: str = "rk4",
+    return_time: bool = False,
+    mesh=None,
+    device="cuda",
+    engine: str | None = None,
+):
+    """Integrate a batch of trajectories in one launch of kernel B6.
+
+    ``fields_init``/``derivatives_init`` have shape (B, n); ``pars`` is
+    either (k,) (shared) or (B, k) (per-trajectory, one parameter set per
+    trajectory).  Returns (B, steps, 2n+1) [+ (B, steps) times] numpy
+    arrays.
+
+    ``device``: where the solve runs (``"cuda"`` by default; a CUDA device
+    on a host without CUDA raises).  ``engine``: None — kernel B6 on a CUDA
+    device, the plain PyTorch version on a CPU device; ``"cuda"`` — kernel
+    B6; ``"torch"`` — the plain version on any device.  ``solver``:
+    ``"rk4"`` or ``"rkf"`` (``"rkf_pallas"``, the JAX package's TPU kernel,
+    raises: ``"rkf"`` runs kernel B6).  ``mesh=`` raises
+    ``NotImplementedError`` (ROADMAP A10)."""
+    pars, fields_init, derivatives_init = _check_batch(
+        artifact, pars, fields_init, derivatives_init
+    )
+    _check_solver(solver, mesh)
+    device = resolve_device(device)
+    engine = resolve_engine(engine, device, "kernel B6")
+    rows, times = _solve_batch_device(
+        artifact, pars, steps, fields_init, derivatives_init, max_err, solver,
+        device, engine,
+    )
+    return _host(rows, times, return_time)
+
+
+def _survey_reduce(artifact, rows, times, pars):
+    """Per-trajectory summary of a batch of solved backgrounds, in torch ops
+    on their device: the e-fold count through inflation (ε_H = 1 crossing,
+    interpolated), the crossing's H and field point, and the integrated
+    span — (B,) outputs from (B, steps) inputs."""
+    d = artifact.n_fields
+    x = [rows[..., c] for c in range(d)]
+    chi = [rows[..., d + c] for c in range(d)]
+    hub = rows[..., 2 * d]
+    a_in = pars if pars.ndim == 1 else [pars[:, j:j + 1] for j in range(pars.shape[1])]
+    chi_sq = artifact.inner_prod(x, a_in, chi, chi)
+    hdot = -0.5 * chi_sq
+    eps = -hdot / (hub * hub)
+    dt = times[:, 1:] - times[:, :-1]
+    seg = 0.5 * (hub[:, 1:] + hub[:, :-1]) * dt \
+        + (dt * dt / 12.0) * (hdot[:, :-1] - hdot[:, 1:])
+    n = torch.cat([torch.zeros_like(times[:, :1]), torch.cumsum(seg, dim=1)], dim=1)
+    finite = torch.isfinite(eps) & (hub > 0.0)
+    below = finite & (eps < 1.0)
+    inflated = below.any(dim=1)
+    start = torch.argmax(below.to(torch.uint8), dim=1)  # first inflating row
+    idxs = torch.arange(times.shape[1], device=times.device)[None, :]
+    crossing = (idxs > start[:, None]) & finite & (eps >= 1.0)
+    ended = inflated & crossing.any(dim=1)
+    i = torch.clamp_min(torch.argmax(crossing.to(torch.uint8), dim=1), 1)
+
+    def pair(arr):
+        lo = torch.gather(arr, 1, (i - 1)[:, None])[:, 0]
+        hi = torch.gather(arr, 1, i[:, None])[:, 0]
+        return lo, hi
+
+    e0, e1 = pair(eps)
+    frac = torch.where(e1 != e0, (1.0 - e0) / (e1 - e0), 0.0)
+
+    def interp(arr):
+        a0, a1 = pair(arr)
+        return a0 + frac * (a1 - a0)
+
+    n_start = torch.gather(n, 1, start[:, None])[:, 0]
+    nan = torch.full_like(n_start, float("nan"))
+    n_inf = torch.where(ended, interp(n) - n_start, nan)
+    h_end = torch.where(ended, interp(hub), nan)
+    x_end = torch.where(ended[:, None], torch.stack([interp(xc) for xc in x], dim=1),
+                        float("nan"))
+    return n_inf, ended, h_end, x_end, n[:, -1]
+
+
+def survey_initial_conditions(
+    artifact: CompiledModel,
+    pars,
+    steps: int,
+    fields_init,
+    derivatives_init,
+    *,
+    max_err: float = 1e-6,
+    solver: str | None = None,
+    chunk: int = 8192,
+    mesh=None,
+    device="cuda",
+    engine: str | None = None,
+) -> dict:
+    """Map the inflationary outcome over a batch of initial conditions.
+
+    For every row of ``fields_init``/``derivatives_init`` ((B, n); either
+    may broadcast from (n,)), integrates the background and reduces the
+    trajectory on the device to a per-IC summary: how many e-folds of
+    inflation the initial condition produces (ε_H < 1 → ε_H = 1 crossing,
+    interpolated), whether inflation ends inside the integrated span, and
+    the crossing's H and field point.  ``pars`` is (k,) shared or (B, k)
+    per-trajectory.  The batch runs in ``chunk``-sized solves; only the
+    (B,) summaries cross to the host.
+
+    Returns a dict of (B,) numpy arrays: ``N_inflation`` (NaN where
+    inflation never happens or never ends), ``ended`` (bool), ``H_end``,
+    ``x_end`` ((B, n)), ``N_span`` (e-folds over the whole trajectory).
+
+    ``solver``: None (``"rkf"``), ``"rkf"`` or ``"rk4"``; ``device``,
+    ``engine`` and ``mesh`` as in :func:`solve_eom_batch`."""
+    fields_init = np.atleast_2d(np.asarray(fields_init, dtype=float))
+    B = fields_init.shape[0]
+    derivatives_init = np.broadcast_to(
+        np.asarray(derivatives_init, dtype=float), (B, artifact.n_fields)
+    ).copy()
+    pars, fields_init, derivatives_init = _check_batch(
+        artifact, pars, fields_init, derivatives_init
+    )
+    solver = "rkf" if solver is None else solver
+    _check_solver(solver, mesh)
+    device = resolve_device(device)
+    engine = resolve_engine(engine, device, "kernel B6")
+
+    outs = []
+    for c0 in range(0, B, int(chunk)):
+        sl = slice(c0, min(B, c0 + int(chunk)))
+        p_c = pars if pars.ndim == 1 else pars[sl]
+        rows, times = _solve_batch_device(
+            artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
+            max_err, solver, device, engine,
+        )
+        p_t = torch.as_tensor(p_c, dtype=torch.float64, device=device)
+        outs.append([v.cpu().numpy() for v in _survey_reduce(artifact, rows, times, p_t)])
+    n_inf, ended, h_end, x_end, n_span = (
+        np.concatenate([o[j] for o in outs]) for j in range(5)
+    )
+    return {
+        "N_inflation": n_inf,
+        "ended": ended.astype(bool),
+        "H_end": h_end,
+        "x_end": x_end,
+        "N_span": n_span,
+    }
+
+
+def efolds(rows, times, hdot=None):
+    """Cumulative e-fold count N(t) = ∫₀ᵗ H dt' along solved trajectories.
+
+    ``rows``/``times`` are the outputs of :func:`solve_eom` ((steps, 2n+1),
+    (steps,)) or :func:`solve_eom_batch` ((B, steps, 2n+1), (B, steps)) with
+    ``return_time=True``; H is the last state column.  Returns an array
+    shaped like ``times`` with N per output row (trapezoid rule over the
+    adaptive step sequence; row 0 is 0).
+
+    ``hdot`` (optional, shaped like ``times``) supplies Ḣ at every row; the
+    quadrature is then corrected to cubic-Hermite order (trapezoid +
+    Δt²/12·(Ḣᵢ − Ḣᵢ₊₁)).  Host numpy, as in the JAX package."""
+    rows = np.asarray(rows, dtype=float)
+    times = np.asarray(times, dtype=float)
+    if rows.shape[:-1] != times.shape:
+        raise ShapeError(rows.shape[:-1], times.shape,
+                         "times must match the solver rows per trajectory")
+    hubble = rows[..., -1]
+    dt = np.diff(times, axis=-1)
+    seg = 0.5 * (hubble[..., 1:] + hubble[..., :-1]) * dt
+    if hdot is not None:
+        hdot = np.asarray(hdot, dtype=float)
+        if hdot.shape != times.shape:
+            raise ShapeError(times.shape, hdot.shape,
+                             "hdot must give Ḣ at every output row")
+        seg = seg + (dt * dt / 12.0) * (hdot[..., :-1] - hdot[..., 1:])
+    out = np.zeros_like(times)
+    np.cumsum(seg, axis=-1, out=out[..., 1:])
+    return out

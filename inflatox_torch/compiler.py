@@ -4,8 +4,9 @@ The counterpart of ``inflatox_tpu/compiler.py``: the same ``Compiler`` /
 ``CompiledModel`` surface (potential, grad_square, grad, hesse, basis,
 metric, inner_prod, eom, eom_h, eom_hdot, the symbol table) and the same
 schema-guarded JSON bundle, so a bundle written by either package loads into
-the other.  Beyond the JAX package, :meth:`CompiledModel.cuda_source` emits
-the per-model header that the hand-written CUDA grid-scan kernel includes.
+the other.  Beyond the JAX package, :meth:`CompiledModel.cuda_source` and
+:meth:`CompiledModel.cuda_solver_source` emit the per-model headers that the
+hand-written CUDA grid-scan and solver kernels include.
 
 The TPU-only emulation bundles of the JAX package (``df32_fns``,
 ``edf_fns``, ``tf_fns``, ``solver_df32_fns``, ``df32_compatible``) have no
@@ -75,6 +76,7 @@ class CompiledModel:
         self._registry = registry
         self._cse_opts = {"cse": cse, "max_cses": max_cses}
         self._cuda_source = None
+        self._cuda_solver_source = None
         self.model_name = model.model_name
         self.n_fields = model.dim
         self.n_parameters = registry.n_parameters
@@ -178,6 +180,16 @@ class CompiledModel:
 
             self._cuda_source = generate_header(self)
         return self._cuda_source
+
+    def cuda_solver_source(self) -> str:
+        """The per-model CUDA/C++ header the background-solver kernel
+        includes (``f_eom_<a>``, ``f_eom_h``, ``f_eom_hdot``, ``inflx_eom``
+        and ``INFLX_NF``), for any field count, memoised."""
+        if self._cuda_solver_source is None:
+            from .lowering.cuda_codegen import generate_solver_header  # noqa: PLC0415
+
+            self._cuda_solver_source = generate_solver_header(self)
+        return self._cuda_solver_source
 
     # ------------------------------------------------------------------ #
     # symbol table (reference compiler.py:252-276)                       #

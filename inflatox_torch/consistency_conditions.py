@@ -4,10 +4,11 @@ The port of ``inflatox_tpu/consistency_conditions.py`` (reference:
 ``python/inflatox/consistency_conditions.py`` plus the Rust grid scans it
 calls).  A grid scan is one launch of kernel B1, the hand-written CUDA grid
 scan (:mod:`inflatox_torch.ops.cuda_kernels`), on a CUDA device, or its plain
-PyTorch version on any device.
+PyTorch version on any device; an on-trajectory scan (``*_ot``) is one launch
+of kernel B5, the same analysis at given points, or its plain version.
 
 Devices are explicit: ``GeneralisedAL(artifact, device=...)`` computes on
-that device only.  ``engine=None`` resolves to ``"cuda"`` (kernel B1) on a
+that device only.  ``engine=None`` resolves to ``"cuda"`` (the kernel) on a
 CUDA device and to ``"torch"`` (the plain version) on a CPU device.  The
 ``threads`` keyword of the reference is accepted and ignored.
 """
@@ -18,25 +19,14 @@ import numpy as np
 import torch
 
 from .compiler import CompiledModel
-from .ops.cuda_kernels import scan_cuda, scan_torch
+from .ops.cuda_kernels import scan_cuda, scan_points_cuda, scan_points_torch, scan_torch
+from .utils.devices import resolve_device, resolve_engine
 from .utils.errors import BasisNormError, BasisOrthogonalityError, ShapeError
 from .utils.logging import Progress, log_warn
 
 __all__ = ["InflationCondition", "GeneralisedAL"]
 
 _DBL_MIN = 2.2250738585072014e-308
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} was requested but CUDA is not available "
-            "on this host; pass device=\"cpu\" to compute on the CPU"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a CUDA or CPU device, got {device}")
-    return device
 
 
 class InflationCondition:
@@ -64,7 +54,7 @@ class InflationCondition:
         ``validation_seed`` fixes the random points (the same numpy draws as
         the JAX package for the same seed)."""
         self.artifact = compiled_artifact
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.dtype = torch.float64
         if validate_basis:
             self._validate_basis_at_random(seed=validation_seed)
@@ -303,15 +293,16 @@ _SCAN_MESSAGES = {
         "Calculating consistency condition ONLY assuming rapid-turn"
     ),
     "epsilon_v": "Calculating potential slow-roll parameter ε_V ONLY",
+    "complete_analysis_ot": "Calculating full analysis on trajectory",
+    "consistency_ot": "Calculating consistency condition ONLY on trajectory",
+    "consistency_rapidturn_ot": (
+        "Calculating consistency condition (rapid turn approx.) ONLY on "
+        "trajectory"
+    ),
+    "epsilon_v_ot": (
+        "Calculating potential slow-roll parameter ε_V ONLY on trajectory"
+    ),
 }
-
-#: JAX-package engines and what takes their place in the port
-_ENGINE_MAP = (
-    '"pallas_df64" and "pallas_edf64" map to kernel B1 (engine="cuda"), '
-    '"pallas_tf64" to a double-double kernel (ROADMAP B4), "pallas" to an '
-    'f32 kernel (ROADMAP B2); "xla" has no counterpart — use engine="torch" '
-    "for the plain PyTorch version"
-)
 
 
 class GeneralisedAL(InflationCondition):
@@ -321,30 +312,6 @@ class GeneralisedAL(InflationCondition):
 
     Reference parity: ``GeneralisedAL`` (consistency_conditions.py:199-715).
     """
-
-    def _resolve_engine(self, engine):
-        """``None`` → ``"cuda"`` on a CUDA device, ``"torch"`` on a CPU
-        device.  ``"cuda"`` needs a CUDA device; ``"torch"`` runs on any."""
-        if engine is None:
-            return "cuda" if self.device.type == "cuda" else "torch"
-        if engine == "cuda":
-            if self.device.type != "cuda":
-                raise ValueError(
-                    'engine="cuda" runs kernel B1 on a CUDA device; this '
-                    f"object computes on {self.device} (construct it with "
-                    'device="cuda", or use engine="torch")'
-                )
-            return engine
-        if engine == "torch":
-            return engine
-        if engine == "xla" or str(engine).startswith("pallas"):
-            raise ValueError(
-                f"engine={engine!r} is a JAX-package engine; in the PyTorch "
-                f"port {_ENGINE_MAP}"
-            )
-        raise ValueError(
-            f'unknown engine {engine!r}; expected None (auto), "cuda" or "torch"'
-        )
 
     def _grid_scan(self, kind, args, extent, shape, progress, threads, dtype,
                    engine, output):
@@ -365,7 +332,7 @@ class GeneralisedAL(InflationCondition):
             raise ValueError(
                 f"output must be 'f64' or 'f64_device', got {output!r}"
             )
-        engine = self._resolve_engine(engine)
+        engine = resolve_engine(engine, self.device, "kernel B1")
         self._validate_2field()
         args = self._validate_args(args)
         scan = scan_cuda if engine == "cuda" else scan_torch
@@ -483,3 +450,70 @@ class GeneralisedAL(InflationCondition):
             (x0_start, x0_stop, x1_start, x1_stop), (N_x0, N_x1),
             progress, threads, dtype, engine, output,
         )
+
+    # ---------------- on-trajectory variants --------------------------- #
+    # (anguelova.rs:633-977: the same point ops over a user-supplied      #
+    # (n, 2) trajectory array)                                            #
+
+    def _run_trajectory_scan(self, kind, args, x, progress, engine):
+        """Shared body of the four ``*_ot`` methods: kernel B5 (or its plain
+        version) at the points of ``x``; returns the (n_out, n) numpy
+        result."""
+        self._validate_2field()
+        args = self._validate_args(args)
+        engine = resolve_engine(engine, self.device, "kernel B5")
+        if not torch.is_tensor(x):
+            x = np.asarray(x, dtype=float)
+        if x.ndim != 2 or x.shape[1] != self.artifact.n_fields:
+            raise ShapeError(
+                (-1, self.artifact.n_fields), tuple(x.shape),
+                "trajectory must be an (n, n_fields) array of field-space "
+                "points",
+            )
+        x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
+        scan = scan_points_cuda if engine == "cuda" else scan_points_torch
+        with Progress(_SCAN_MESSAGES[kind], enabled=progress,
+                      total_ops=int(x.shape[0])):
+            out = scan(self.artifact, kind[: -len("_ot")], args, x).cpu().numpy()
+        return out
+
+    def complete_analysis_ot(
+        self, args, x, progress: bool = True, threads: int | None = None,
+        engine: str | None = None,
+    ):
+        """Complete analysis on an (n, 2) trajectory (a numpy array, or a
+        float64 tensor) → list of six (n, 1) numpy arrays, consistency,
+        ε_V, ε_H, η_∥, δ, ω (the reference returns ``np.split(out, 6, 1)``
+        of an (n, 6) array, consistency_conditions.py:582-589).
+        ``engine`` as in :meth:`complete_analysis` (``"cuda"``: kernel
+        B5)."""
+        del threads
+        out = self._run_trajectory_scan("complete_analysis_ot", args, x, progress, engine)
+        return [o[:, None] for o in out]
+
+    def consistency_ot(
+        self, args, x, progress: bool = True, threads: int | None = None,
+        engine: str | None = None,
+    ) -> np.ndarray:
+        """:meth:`consistency` at the points of an (n, 2) trajectory → (n,)."""
+        del threads
+        return self._run_trajectory_scan("consistency_ot", args, x, progress, engine)[0]
+
+    def consistency_rapidturn_ot(
+        self, args, x, progress: bool = True, threads: int | None = None,
+        engine: str | None = None,
+    ) -> np.ndarray:
+        """:meth:`consistency_rapidturn` at the points of an (n, 2)
+        trajectory → (n,)."""
+        del threads
+        return self._run_trajectory_scan(
+            "consistency_rapidturn_ot", args, x, progress, engine
+        )[0]
+
+    def epsilon_v_ot(
+        self, args, x, progress: bool = True, threads: int | None = None,
+        engine: str | None = None,
+    ) -> np.ndarray:
+        """:meth:`epsilon_v` at the points of an (n, 2) trajectory → (n,)."""
+        del threads
+        return self._run_trajectory_scan("epsilon_v_ot", args, x, progress, engine)[0]

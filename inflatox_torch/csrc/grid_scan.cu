@@ -1,4 +1,5 @@
-// Kernel B1: the native-f64 grid scan of the Anguelova-Lazaroiu analysis.
+// Kernel B1: the native-f64 grid scan of the Anguelova-Lazaroiu analysis,
+// and kernel B5: the same analysis at given field-space points.
 //
 // Replaces the TPU kernel _kernel_df/_launch_df
 // (inflatox_tpu/ops/pallas_kernels.py:388-533), which evaluates the model in
@@ -15,6 +16,15 @@
 // Coordinates are x = x0a + i*dx0 with explicit round-to-nearest add and
 // multiply, so nvcc cannot contract them into an FMA: they are bit-equal to
 // the torch grid (ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
+//
+// Kernel B5 (points_scan_kernel) replaces the TPU's on-trajectory kernels
+// _kernel_df_ot/_kernel_edf_ot/_launch_ot
+// (inflatox_tpu/ops/pallas_kernels.py:1055-1160), which split each point
+// into (hi, lo) f32 pairs padded with 1.0 into (32, 128) blocks and write
+// f32 output pairs.  Here the points are exact f64: one thread per point i
+// of a contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the same
+// model functions and tail, and writes n_out planes of (n,), coalesced.
+// Its bound is bytes: 16 bytes read and 8·n_out written per point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +76,34 @@ grid_scan_kernel(const double* __restrict__ p, double* __restrict__ out,
   }
 }
 
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+points_scan_kernel(const double* __restrict__ p, const double* __restrict__ pts,
+                   double* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const double x[2] = {pts[2 * i], pts[2 * i + 1]};
+  double* o = out + i;
+  const double v = f_V(x, p);
+  if (KIND == KIND_EPSILON_V) {
+    o[0] = inflx_tail_epsilon_v(v, f_gsq(x, p));
+    return;
+  }
+  const double v00 = f_h00(x, p);
+  const double v10 = f_h10(x, p);
+  const double v11 = f_h11(x, p);
+  if (KIND == KIND_COMPLETE_ANALYSIS) {
+    double r[6];
+    inflx_tail_complete(v, v00, v10, v11, f_gsq(x, p), r);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) o[k * n] = r[k];
+  } else if (KIND == KIND_CONSISTENCY) {
+    o[0] = inflx_tail_consistency(v, v00, v10, v11);
+  } else {
+    o[0] = inflx_tail_consistency_rapidturn(v, v00, v10, v11);
+  }
+}
+
 extern "C" {
 
 // Launch one scan on `stream`; returns cudaGetLastError() (0 on success).
@@ -96,6 +134,36 @@ int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
     case KIND_EPSILON_V:
       grid_scan_kernel<KIND_EPSILON_V><<<grid, block, 0, s>>>(
           pp, po, x0a, dx0, x1a, dx1, n0, n1);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch one point scan on `stream`; returns cudaGetLastError().
+// p: n_params f64; pts: (n, 2) f64; out: n_out * n f64, all on the device.
+int inflx_points_scan(int kind, const void* p, const void* pts, void* out,
+                      int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 block(kThreads);
+  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+  cudaStream_t s = (cudaStream_t)stream;
+  const double* pp = (const double*)p;
+  const double* px = (const double*)pts;
+  double* po = (double*)out;
+  switch (kind) {
+    case KIND_COMPLETE_ANALYSIS:
+      points_scan_kernel<KIND_COMPLETE_ANALYSIS><<<grid, block, 0, s>>>(pp, px, po, n);
+      break;
+    case KIND_CONSISTENCY:
+      points_scan_kernel<KIND_CONSISTENCY><<<grid, block, 0, s>>>(pp, px, po, n);
+      break;
+    case KIND_CONSISTENCY_RAPIDTURN:
+      points_scan_kernel<KIND_CONSISTENCY_RAPIDTURN><<<grid, block, 0, s>>>(pp, px, po, n);
+      break;
+    case KIND_EPSILON_V:
+      points_scan_kernel<KIND_EPSILON_V><<<grid, block, 0, s>>>(pp, px, po, n);
       break;
     default:
       return (int)cudaErrorInvalidValue;

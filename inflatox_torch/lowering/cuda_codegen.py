@@ -1,8 +1,9 @@
-"""Per-model CUDA/C++ header for the hand-written grid-scan kernel.
+"""Per-model CUDA/C++ headers for the hand-written kernels.
 
-The header defines one function per model quantity the grid scan needs, with
-the signature ``(const double* x, const double* p)`` and the registry slots
-of :mod:`inflatox_torch.lowering.registry` (``x[i]`` fields, ``p[i]``
+Two headers, one per kernel library.  :func:`generate_header` (2-field
+models only) defines what the grid and point scans need, with the signature
+``(const double* x, const double* p)`` and the registry slots of
+:mod:`inflatox_torch.lowering.registry` (``x[i]`` fields, ``p[i]``
 parameters):
 
     f_V    potential V
@@ -11,14 +12,28 @@ parameters):
     f_h11  projected Hesse V_ww
     f_gsq  |∇V|²
 
+:func:`generate_solver_header` (any field count n) defines what the
+background solver needs, with the signature ``(const double* x, const
+double* xd, const double* p)`` (``xd[i]`` the field velocities), and
+``#define INFLX_NF n``:
+
+    f_eom_<a>   the EoM term of field a < n (Γ^a_bc χ^b χ^c + g^ab ∂_b V)
+    f_eom_h     the Hubble parameter from the Friedmann constraint
+    f_eom_hdot  Ḣ = −½ G_ab χ^a χ^b
+
 Each body is translated from the model's torch lowering
 (:mod:`inflatox_torch.lowering.torch_lowering`) through Python's ``ast``:
 the same operations, in the same order, fully parenthesised — integer powers
 through ``inflx_powi`` (the lowering's ``_ipow``), the same CSE locals when
-the model was compiled with ``cse=True``.  Built without FMA contraction
-(see :mod:`inflatox_torch.ops.build`), the kernel therefore rounds exactly
-as the plain PyTorch version does, wherever both use the same libm (on the
-card: CUDA's).
+the model was compiled with ``cse=True``.  Each operation rounds once, as
+the corresponding torch kernel does, so the kernels agree with their plain
+PyTorch versions to the last bit wherever both use the same libm (on the
+card: CUDA's).  The two headers keep FMA contraction out differently (see
+:mod:`inflatox_torch.ops.build`): the grid-scan header uses plain operators
+and is built with ``-fmad=false``; the solver header writes its sums and
+products as ``inflx_add``/``inflx_sub``/``inflx_mul`` (``csrc/inflx_math.cuh``,
+never fused) and is built with contraction on, so that CUDA's ``pow``
+compiles exactly as inside ``torch.pow``.
 
 Every function is marked ``INFLX_FN``: ``__device__ __forceinline__`` under
 nvcc, ``static inline`` elsewhere, so the same header also compiles with the
@@ -29,8 +44,9 @@ from __future__ import annotations
 
 import ast
 import math
+from string import Template
 
-__all__ = ["generate_header"]
+__all__ = ["generate_header", "generate_solver_header"]
 
 #: torch functions of the lowered source → C functions
 _C_FUNCS = {
@@ -44,7 +60,8 @@ _C_FUNCS = {
     "maximum": "inflx_max", "minimum": "inflx_min",
 }
 
-_BINOPS = {ast.Add: "+", ast.Sub: "-", ast.Mult: "*", ast.Div: "/"}
+_BINOPS = {ast.Add: "+", ast.Sub: "-", ast.Mult: "*"}
+_RN_BINOPS = {ast.Add: "inflx_add", ast.Sub: "inflx_sub", ast.Mult: "inflx_mul"}
 
 
 def _double(value) -> str:
@@ -84,33 +101,42 @@ def _is_scalar(node, scalars) -> bool:
     return False
 
 
-def _c(node, scalars=frozenset()) -> str:
-    """C expression for one node of a lowered torch function.
+def _binop(op, left, right, rn) -> str:
+    if rn:
+        return f"{_RN_BINOPS[op]}({left}, {right})"
+    return f"({left} {_BINOPS[op]} {right})"
+
+
+def _c(node, scalars=frozenset(), rn=False) -> str:
+    """C expression for one node of a lowered torch function; with ``rn``,
+    sums and products are written as ``inflx_add``/``inflx_sub``/
+    ``inflx_mul``.
 
     Division follows what torch computes on the card: ``number / tensor``
     is ``tensor.reciprocal() * number`` (``Tensor.__rtruediv__``) and
     ``tensor / number`` multiplies by the host-computed reciprocal (CUDA's
     CPU-scalar division path)."""
-    if isinstance(node, ast.BinOp) and type(node.op) in _BINOPS:
-        left, right = _c(node.left, scalars), _c(node.right, scalars)
+    if isinstance(node, ast.BinOp) and type(node.op) in (*_BINOPS, ast.Div):
+        left, right = _c(node.left, scalars, rn), _c(node.right, scalars, rn)
         if isinstance(node.op, ast.Div):
             lscalar = _is_scalar(node.left, scalars)
             rscalar = _is_scalar(node.right, scalars)
             if lscalar and not rscalar:
-                return f"((1.0 / {right}) * {left})"
+                return _binop(ast.Mult, f"(1.0 / {right})", left, rn)
             if rscalar and not lscalar:
-                return f"({left} * (1.0 / {right}))"
-        return f"({left} {_BINOPS[type(node.op)]} {right})"
+                return _binop(ast.Mult, left, f"(1.0 / {right})", rn)
+            return f"({left} / {right})"
+        return _binop(type(node.op), left, right, rn)
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
-        return f"(-{_c(node.operand, scalars)})"
+        return f"(-{_c(node.operand, scalars, rn)})"
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
-        return _c(node.operand, scalars)
+        return _c(node.operand, scalars, rn)
     if isinstance(node, ast.Constant) and isinstance(node.value, (int, float)):
         return _double(node.value)
     if isinstance(node, ast.Name):
         return node.id  # a CSE local
     if isinstance(node, ast.Subscript) and isinstance(node.value, ast.Name):
-        slot = {"x": "x", "args": "p"}.get(node.value.id)
+        slot = {"x": "x", "xdot": "xd", "args": "p"}.get(node.value.id)
         index = _int_const(node.slice)
         if slot is not None and index is not None:
             return f"{slot}[{index}]"
@@ -119,16 +145,16 @@ def _c(node, scalars=frozenset()) -> str:
         if isinstance(func, ast.Name) and func.id == "_ipow" and len(args) == 2:
             n = _int_const(args[1])
             if n is not None:
-                return f"inflx_powi({_c(args[0], scalars)}, {n})"
+                return f"inflx_powi({_c(args[0], scalars, rn)}, {n})"
         if (isinstance(func, ast.Name) and func.id == "float" and len(args) == 1
                 and isinstance(args[0], ast.Constant)):
             return _double(float(args[0].value))  # float('inf') / float('nan')
         if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
                 and func.value.id == "torch"):
             if func.attr == "tensor" and args:  # a literal for Max/Min/atan2
-                return _c(args[0], scalars)
+                return _c(args[0], scalars, rn)
             if func.attr in _C_FUNCS:
-                inner = ", ".join(_c(a, scalars) for a in args)
+                inner = ", ".join(_c(a, scalars, rn) for a in args)
                 return f"{_C_FUNCS[func.attr]}({inner})"
     raise NotImplementedError(
         f"no CUDA translation for {ast.unparse(node)!r} of a lowered model "
@@ -136,7 +162,7 @@ def _c(node, scalars=frozenset()) -> str:
     )
 
 
-def _function_body(lowered, output: int | None) -> tuple:
+def _function_body(lowered, output: int | None, rn: bool) -> tuple:
     """(CSE lines, return expression) of one output of a lowered function."""
     (fn,) = ast.parse(lowered.source).body
     lines = []
@@ -146,22 +172,21 @@ def _function_body(lowered, output: int | None) -> tuple:
             (target,) = stmt.targets
             if _is_scalar(stmt.value, scalars):
                 scalars.add(target.id)
-            lines.append(f"  const double {target.id} = {_c(stmt.value, scalars)};\n")
+            lines.append(f"  const double {target.id} = {_c(stmt.value, scalars, rn)};\n")
         elif isinstance(stmt, ast.Return):
             value = stmt.value
-            if output is not None:
+            if output is not None and isinstance(value, ast.Tuple):
                 value = value.elts[output]
-            return lines, _c(value, scalars)
+            return lines, _c(value, scalars, rn)
     raise ValueError(f"lowered function {lowered.name} has no return")
 
 
-_PRELUDE = """\
+_PRELUDE = Template("""\
 // Generated by inflatox_torch.lowering.cuda_codegen — per-model functions
-// for the grid-scan kernel (csrc/grid_scan.cu), translated from the model's
-// torch lowering.
+// for the kernels in csrc/, translated from the model's torch lowering.
 #pragma once
 #include <math.h>
-
+$include
 #ifndef INFLX_FN
 #ifdef __CUDACC__
 #define INFLX_FN __device__ __forceinline__
@@ -202,12 +227,12 @@ INFLX_FN double inflx_powi(double b, int n) {
   bool have = false;
   for (;;) {
     if (n & 1) {
-      acc = have ? acc * b : b;
+      acc = have ? $acc_b : b;
       have = true;
     }
     n >>= 1;
     if (!n) break;
-    b = b * b;
+    b = $b_b;
   }
   return negative ? 1.0 / acc : acc;
 }
@@ -216,29 +241,64 @@ INFLX_FN double inflx_max(double a, double b) { return (a != a || a > b) ? a : b
 INFLX_FN double inflx_min(double a, double b) { return (a != a || a < b) ? a : b; }
 INFLX_FN double inflx_sign(double a) { return a > 0.0 ? 1.0 : (a < 0.0 ? -1.0 : a); }
 
-"""
+""")
 
 
-def _emit_fn(name: str, lowered, output: int | None = None) -> str:
-    lines, ret = _function_body(lowered, output)
+def _prelude(rn: bool) -> str:
+    """The header's fixed part; with ``rn`` it includes
+    ``csrc/inflx_math.cuh`` and ``inflx_powi`` multiplies through
+    ``inflx_mul``."""
+    if rn:
+        return _PRELUDE.substitute(include='#include "inflx_math.cuh"\n',
+                                   acc_b="inflx_mul(acc, b)", b_b="inflx_mul(b, b)")
+    return _PRELUDE.substitute(include="", acc_b="acc * b", b_b="b * b")
+
+
+def _emit_fn(name: str, lowered, output: int | None = None, rn: bool = False) -> str:
+    """One ``INFLX_FN double`` function; its parameters are those of the
+    lowered function's signature (``x``, ``xdot`` → ``xd``, ``args`` →
+    ``p``)."""
+    lines, ret = _function_body(lowered, output, rn)
+    slots = [{"xdot": "xd", "args": "p"}.get(a, a) for a in lowered.signature]
+    params = ", ".join(f"const double* __restrict__ {s}" for s in slots)
+    unused = " ".join(f"(void){s};" for s in slots)
     return (
-        f"INFLX_FN double {name}(const double* __restrict__ x, "
-        "const double* __restrict__ p) {\n"
-        "  (void)x; (void)p;\n"
+        f"INFLX_FN double {name}({params}) {{\n"
+        f"  {unused}\n"
         + "".join(lines)
         + f"  return {ret};\n}}\n\n"
     )
 
 
 def generate_header(artifact) -> str:
-    """Emit the header for a 2-field :class:`CompiledModel`."""
+    """Emit the grid/point-scan header for a 2-field :class:`CompiledModel`."""
     if artifact.n_fields != 2:
         raise ValueError("the grid-scan kernel supports 2-field models")
     return (
-        _PRELUDE
+        _prelude(rn=False)
         + _emit_fn("f_V", artifact.potential)
         + _emit_fn("f_h00", artifact._hesse, 0)
         + _emit_fn("f_h10", artifact._hesse, 2)
         + _emit_fn("f_h11", artifact._hesse, 3)
         + _emit_fn("f_gsq", artifact.grad_square)
+    )
+
+
+def generate_solver_header(artifact) -> str:
+    """Emit the background-solver header for a :class:`CompiledModel` with
+    any number of fields: the EoM functions and ``inflx_eom``, which fills
+    all n EoM terms at once."""
+    n = artifact.n_fields
+    calls = "".join(f"  out[{a}] = f_eom_{a}(x, xd, p);\n" for a in range(n))
+    return (
+        _prelude(rn=True)
+        + f"#define INFLX_NF {n}\n\n"
+        + "".join(_emit_fn(f"f_eom_{a}", artifact.eom, a, rn=True) for a in range(n))
+        + _emit_fn("f_eom_h", artifact.eom_h, rn=True)
+        + _emit_fn("f_eom_hdot", artifact.eom_hdot, rn=True)
+        + "INFLX_FN void inflx_eom(const double* __restrict__ x, "
+        "const double* __restrict__ xd,\n"
+        "                         const double* __restrict__ p, double* out) {\n"
+        + calls
+        + "}\n"
     )

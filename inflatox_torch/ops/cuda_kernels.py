@@ -1,4 +1,5 @@
-"""Kernel B1: the complete-analysis grid scan, hand-written in CUDA C++.
+"""Kernels B1 and B5: the analysis over a grid and at given points,
+hand-written in CUDA C++.
 
 Replaces the TPU kernel ``_kernel_df``/``_launch_df``
 (``inflatox_tpu/ops/pallas_kernels.py:388-533``, entries
@@ -19,14 +20,25 @@ vector, so the writes are the only device-memory traffic, each written once
 and coalesced (j is the fastest index).  Tuning the f64 work per point is
 left to later PRs.
 
-Beside the kernel:
+Kernel B5 (``inflx_points_scan`` in the same source) replaces the TPU's
+on-trajectory kernels ``_kernel_df_ot``/``_kernel_edf_ot``/``_launch_ot``
+(``inflatox_tpu/ops/pallas_kernels.py:1055-1160``, entry
+``scan_pallas_ot``): the same kinds at the points of a contiguous (n, 2)
+float64 tensor, one thread per point.  The TPU's (hi, lo) split of the
+coordinates, its padding to (32, 128) blocks and its f32 output pairs are
+dropped: the points are exact f64.  It is bound by bytes (16 read and
+8·n_out written per point).
 
-* :func:`scan_cuda` — the wrapper: on a CUDA device it launches the kernel
-  on the current stream (no synchronisation) and counts the launch in
-  :data:`LAUNCHES`; on a CPU device it runs :func:`scan_torch`.
-* :func:`scan_torch` — the plain PyTorch version (grid coordinates, the
-  lowered torch functions and :mod:`inflatox_torch.ops.anguelova`), used by
-  the CPU path, by ``engine="torch"`` and by the tests.
+Beside the kernels:
+
+* :func:`scan_cuda`, :func:`scan_points_cuda` — the wrappers: on a CUDA
+  device they launch the kernel on the current stream (no synchronisation)
+  and count the launch in :data:`LAUNCHES`; on a CPU device they run the
+  plain version.
+* :func:`scan_torch`, :func:`scan_points_torch` — the plain PyTorch
+  versions (the lowered torch functions and
+  :mod:`inflatox_torch.ops.anguelova`), used by the CPU path, by
+  ``engine="torch"`` and by the tests.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ from .anguelova import (
 )
 from .grid import grid_coords
 
-__all__ = ["KINDS", "LAUNCHES", "evaluate_points", "scan_cuda", "scan_torch"]
+__all__ = ["KINDS", "LAUNCHES", "evaluate_points", "scan_cuda", "scan_points_cuda",
+           "scan_points_torch", "scan_torch"]
 
 #: scan kind → (kernel KIND id in csrc/grid_scan.cu, number of output planes)
 KINDS = {
@@ -54,11 +67,12 @@ KINDS = {
     "epsilon_v": (3, 1),
 }
 
-#: number of kernel launches made by :func:`scan_cuda` in this process
+#: number of kernel launches made by :func:`scan_cuda` and
+#: :func:`scan_points_cuda` in this process
 LAUNCHES = 0
 
 
-def _check(artifact, kind, args, extent, shape):
+def _check_model(artifact, kind, args):
     if kind not in KINDS:
         raise ValueError(f"unknown scan kind {kind!r}; expected one of {sorted(KINDS)}")
     if artifact.n_fields != 2:
@@ -72,6 +86,11 @@ def _check(artifact, kind, args, extent, shape):
         raise ValueError(
             f"args must have shape ({artifact.n_parameters},), got {args.shape}"
         )
+    return args
+
+
+def _check(artifact, kind, args, extent, shape):
+    args = _check_model(artifact, kind, args)
     extent = tuple(float(v) for v in extent)
     if len(extent) != 4 or not all(math.isfinite(v) for v in extent):
         raise ValueError(f"extent must be 4 finite numbers, got {extent}")
@@ -164,5 +183,62 @@ def scan_cuda(artifact, kind, args, extent, shape, device) -> torch.Tensor:
     if err != 0:
         msg = lib.inflx_error_string(err).decode()
         raise RuntimeError(f"grid-scan kernel launch failed: CUDA error {err} ({msg})")
+    LAUNCHES += 1
+    return out
+
+
+def _check_points(artifact, kind, args, x):
+    args = _check_model(artifact, kind, args)
+    if not torch.is_tensor(x) or x.dtype != torch.float64:
+        raise TypeError("points must be a float64 tensor")
+    if x.ndim != 2 or x.shape[1] != 2:
+        raise ValueError(f"points must have shape (n, 2), got {tuple(x.shape)}")
+    return args
+
+
+def scan_points_torch(artifact, kind, args, x) -> torch.Tensor:
+    """Plain PyTorch version of kernel B5: one scan kind at the points of
+    the (n, 2) float64 tensor ``x``, on its device.  Returns an (n_out, n)
+    float64 tensor."""
+    args = _check_points(artifact, kind, args, x)
+    return evaluate_points(artifact, kind, args, (x[:, 0], x[:, 1]))
+
+
+def scan_points_cuda(artifact, kind, args, x) -> torch.Tensor:
+    """Kernel B5's wrapper: one scan kind at the points of the (n, 2)
+    float64 tensor ``x``.
+
+    On a CUDA device it builds the kernel for the model (first use),
+    allocates one (n_out, n) float64 output with ``torch.empty`` and
+    launches on the current stream without synchronising; a launch error
+    raises.  A non-contiguous ``x`` is made contiguous first.  On a CPU
+    device it returns :func:`scan_points_torch`'s result and launches
+    nothing."""
+    global LAUNCHES
+    args = _check_points(artifact, kind, args, x)
+    device = x.device
+    if device.type == "cpu":
+        return scan_points_torch(artifact, kind, args, x)
+    if device.type != "cuda":
+        raise ValueError(f"scan_points_cuda runs on a CUDA or CPU device, got {device}")
+    _, n_out = KINDS[kind]
+    n = x.shape[0]
+    if n == 0:
+        return torch.empty((n_out, 0), dtype=torch.float64, device=device)
+    from .build import load_grid_scan  # noqa: PLC0415
+
+    lib = load_grid_scan(artifact.cuda_source())
+    with torch.cuda.device(device):
+        x = x.contiguous()
+        p = _params(args, device)
+        out = torch.empty((n_out, n), dtype=torch.float64, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.inflx_points_scan(
+            KINDS[kind][0], p.data_ptr() if p.numel() else None, x.data_ptr(),
+            out.data_ptr(), n, stream,
+        )
+    if err != 0:
+        msg = lib.inflx_error_string(err).decode()
+        raise RuntimeError(f"points-scan kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES += 1
     return out

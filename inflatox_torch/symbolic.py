@@ -24,7 +24,9 @@ Documented divergences from the reference (see also tests/test_symbolic.py):
   ``g = V - 3H²`` which equals Ḣ only when 3H² = V + ½σ̇²) require it.
 * simplification timeouts use ``signal.setitimer`` directly instead of the
   ``interruptingcow`` dependency; semantics are the same (graceful fallback
-  to the unsimplified expression, disabled off the main thread / on Windows).
+  to the unsimplified expression, disabled off the main thread / on Windows),
+  and the deadline is checked again when the guarded call returns, so a
+  swallowed SIGALRM cannot let it pass as in time.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import contextlib
 import os
 import signal
 import threading
+import time
 from dataclasses import dataclass, field
 
 import sympy
@@ -64,7 +67,12 @@ def _timeouts_supported() -> bool:
 
 @contextlib.contextmanager
 def _time_limit(seconds: float):
-    """Raise :class:`SimplificationTimeOut` if the body runs too long."""
+    """Raise :class:`SimplificationTimeOut` if the body runs too long.
+
+    SIGALRM interrupts the body; but the exception the handler raises can
+    land in a GC or C-level callback that swallows it, and the body then
+    runs on and returns.  So the deadline is checked again after the body
+    returns: a body that finished late raises all the same."""
     if not _timeouts_supported() or seconds <= 0:
         yield
         return
@@ -72,6 +80,7 @@ def _time_limit(seconds: float):
     def _handler(signum, frame):
         raise SimplificationTimeOut()
 
+    deadline = time.monotonic() + seconds
     previous = signal.signal(signal.SIGALRM, _handler)
     signal.setitimer(signal.ITIMER_REAL, seconds)
     try:
@@ -79,6 +88,8 @@ def _time_limit(seconds: float):
     finally:
         signal.setitimer(signal.ITIMER_REAL, 0.0)
         signal.signal(signal.SIGALRM, previous)
+    if time.monotonic() >= deadline:
+        raise SimplificationTimeOut()
 
 
 _TIMEOUT_MSG = (

@@ -1,4 +1,4 @@
-"""Kernel B1 on the card, against its plain PyTorch version.
+"""Kernels B1, B5 and B6 on the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): they
 carry the ``cuda`` marker and skip on a host without one.  This file
@@ -6,9 +6,10 @@ imports only torch and the port, so it also runs on a host without jax:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: rtol 5e-10 with identical NaN/±inf masks, the repo's tolerance
-for the six analysis maps; the kernel repeats the plain version's
-operations in its order, so the maps are expected to agree exactly."""
+Tolerance: rtol 5e-10 with identical NaN/±inf masks for the analysis maps
+(B1, B5), the repo's tolerance; rtol 1e-12 with identical NaN masks for
+the solver's rows and times (B6).  Each kernel repeats its plain version's
+operations in their order, so both are expected to agree exactly."""
 
 import numpy as np
 import pytest
@@ -16,9 +17,17 @@ import sympy
 import torch
 
 import inflatox_torch
+from inflatox_torch import background
 from inflatox_torch.consistency_conditions import GeneralisedAL
-from inflatox_torch.ops import cuda_kernels
-from inflatox_torch.ops.cuda_kernels import KINDS, scan_cuda, scan_torch
+from inflatox_torch.ops import cuda_kernels, cuda_solver
+from inflatox_torch.ops.cuda_kernels import (
+    KINDS,
+    scan_cuda,
+    scan_points_cuda,
+    scan_points_torch,
+    scan_torch,
+)
+from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +46,7 @@ def assert_maps_close(got, want, rtol=5e-10):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: kernel B1 is CUDA and has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA and have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -105,3 +114,106 @@ def test_golden_values_on_the_card(doc, cuda_device):
     art, _ = doc
     al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
     assert np.isclose(al.calc_V([2.0, -2.0], [1.0]), 1.9166666666666667, rtol=1e-12)
+
+
+def assert_rows_equal(got, want, rtol=1e-12):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0, equal_nan=True)
+
+
+def _inits(batch, n, seed=0):
+    rng = np.random.default_rng(seed)
+    f0 = torch.tensor(rng.uniform(1.5, 2.5, (batch, n)), device="cuda")
+    return f0, torch.zeros_like(f0)
+
+
+@pytest.mark.parametrize("solver", ["rkf", "rk4"])
+@pytest.mark.parametrize("per_trajectory", [False, True], ids=["shared", "per_traj"])
+def test_solver_kernel_matches_plain_torch(doc, cuda_device, solver, per_trajectory):
+    art, args = doc
+    f0, d0 = _inits(96, 2)
+    pars = (torch.linspace(0.5, 2.0, 96, dtype=torch.float64, device="cuda")[:, None]
+            if per_trajectory else torch.tensor(args, device="cuda"))
+    before = cuda_solver.LAUNCHES
+    rows, times = solve_cuda(art, pars, 120, f0, d0, 1e-6, solver)
+    torch.cuda.synchronize()
+    assert cuda_solver.LAUNCHES == before + 1
+    assert rows.shape == (96, 120, 5) and times.shape == (96, 120)
+    want_rows, want_times = solve_torch(art, pars, 120, f0, d0, 1e-6, solver)
+    assert_rows_equal(rows, want_rows)
+    assert_rows_equal(times, want_times)
+
+
+def test_solver_kernel_three_fields(cuda_device):
+    a, b, c, m = sympy.symbols("a3 b3 c3 m3")
+    V = sympy.Rational(1, 2) * m**2 * (a**2 + 2 * b**2 + 3 * c**2)
+    model = inflatox_torch.InflationModelBuilder.new(
+        [a, b, c], [[1, 0, 0], [0, 1, 0], [0, 0, 1]], V, silent=True
+    ).build(guesses=[[0, 1, 0], [0, 0, 1]])
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    f0, d0 = _inits(64, 3)
+    pars = torch.tensor([1.3], dtype=torch.float64, device="cuda")
+    rows, times = solve_cuda(art, pars, 80, f0, d0, 1e-8, "rkf")
+    want_rows, want_times = solve_torch(art, pars, 80, f0, d0, 1e-8, "rkf")
+    assert rows.shape == (64, 80, 7)
+    assert_rows_equal(rows, want_rows)
+    assert_rows_equal(times, want_times)
+
+
+def test_background_entry_points_run_the_kernels(doc, cuda_device):
+    art, args = doc
+    f0 = np.random.default_rng(3).uniform(1.5, 2.5, (40, 2))
+    d0 = np.zeros((40, 2))
+    before = cuda_solver.LAUNCHES
+    rows, times = background.solve_eom_batch(art, args, 60, f0, d0, solver="rkf",
+                                             return_time=True)
+    single = background.solve_eom(art, args, 60, f0[0], d0[0], solver="rkf")
+    survey = background.survey_initial_conditions(art, args, 60, f0, np.zeros(2), chunk=16)
+    assert cuda_solver.LAUNCHES == before + 2 + 3
+    plain = background.solve_eom_batch(art, args, 60, f0, d0, solver="rkf",
+                                       return_time=True, engine="torch")
+    assert cuda_solver.LAUNCHES == before + 5
+    np.testing.assert_array_equal(rows, plain[0])
+    np.testing.assert_array_equal(times, plain[1])
+    np.testing.assert_array_equal(single, rows[0])
+    want = background.survey_initial_conditions(art, args, 60, f0, np.zeros(2), chunk=16,
+                                                engine="torch")
+    for key in want:
+        np.testing.assert_array_equal(survey[key], want[key])
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_points_kernel_matches_plain_torch(doc, cuda_device, kind):
+    art, args = doc
+    rng = np.random.default_rng(5)
+    x = torch.tensor(np.stack([rng.uniform(0.3, 3.0, 10_007), rng.uniform(-3.0, 3.0, 10_007)], 1),
+                     device="cuda")
+    before = cuda_kernels.LAUNCHES
+    got = scan_points_cuda(art, kind, args, x)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES == before + 1
+    assert got.shape == (KINDS[kind][1], 10_007)
+    assert_maps_close(got, scan_points_torch(art, kind, args, x))
+    # a strided view of solver rows is made contiguous by the wrapper
+    wide = torch.cat([x, x], dim=1)[:, 1:3]
+    assert_maps_close(scan_points_cuda(art, kind, args, wide),
+                      scan_points_torch(art, kind, args, wide))
+
+
+def test_trajectory_scans_run_the_kernel(doc, cuda_device):
+    art, args = doc
+    al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
+    rows = background.solve_eom(art, args, 200, [2.0, 2.0], [0.0, 0.0], solver="rkf")
+    before = cuda_kernels.LAUNCHES
+    got = al.complete_analysis_ot(args, rows[:, :2], progress=False)
+    singles = [getattr(al, kind)(args, rows[:, :2], progress=False)
+               for kind in ("consistency_ot", "consistency_rapidturn_ot", "epsilon_v_ot")]
+    assert cuda_kernels.LAUNCHES == before + 4
+    want = al.complete_analysis_ot(args, rows[:, :2], progress=False, engine="torch")
+    assert cuda_kernels.LAUNCHES == before + 4
+    assert len(got) == 6 and got[0].shape == (200, 1)
+    for g, w in zip(got, want):
+        assert_maps_close(torch.from_numpy(g), torch.from_numpy(w))
+    assert all(s.shape == (200,) for s in singles)

@@ -17,11 +17,13 @@ EXPORTS = {
     "CompiledModel",
     "CompilationArtifact",
     "models",
+    "background",
     "consistency_conditions",
 }
 
 MODULES = [
     "inflatox_torch",
+    "inflatox_torch.background",
     "inflatox_torch.compiler",
     "inflatox_torch.consistency_conditions",
     "inflatox_torch.lowering.cuda_codegen",
@@ -29,7 +31,9 @@ MODULES = [
     "inflatox_torch.models",
     "inflatox_torch.ops.build",
     "inflatox_torch.ops.cuda_kernels",
+    "inflatox_torch.ops.cuda_solver",
     "inflatox_torch.symbolic",
+    "inflatox_torch.utils.devices",
 ]
 
 
@@ -77,3 +81,16 @@ def test_schema_version_is_shared():
     import inflatox_tpu.version as jv
 
     assert tv.__schema_version__ == jv.__schema_version__
+
+
+def test_sources_import_no_jax():
+    """No source of the port, nor chip_smoke.py, has an import of jax or of
+    the JAX package (names in comments and docstrings are fine)."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|inflatox_tpu)\b", re.MULTILINE)
+    sources = sorted(Path(REPO, "inflatox_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(sources) > 10
+    offending = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert not offending

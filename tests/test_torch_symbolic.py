@@ -118,3 +118,36 @@ def test_symbol_lookup_matches_jax():
     ref = inflatox_tpu.Compiler(_doc(inflatox_tpu), silent=True).compile()
     for sym in [*model.coordinates, sympy.Symbol("m"), sympy.Symbol("nope")]:
         assert art.lookup_symbol(sym) == ref.lookup_symbol(sym)
+
+
+def test_time_limit_raises_after_a_swallowed_alarm():
+    """A guarded body that swallows its own SimplificationTimeOut (as a GC
+    or C-level callback does) and returns after the limit still makes
+    ``_time_limit`` raise: the deadline is checked again on the way out."""
+    import time
+
+    from inflatox_torch.symbolic import (
+        SimplificationTimeOut,
+        _time_limit,
+        _timeouts_supported,
+    )
+
+    assert _timeouts_supported(), "tests run on the main thread of a POSIX process"
+    swallowed = 0
+    with pytest.raises(SimplificationTimeOut):
+        with _time_limit(0.05):
+            end = time.monotonic() + 0.25
+            while time.monotonic() < end:
+                try:
+                    time.sleep(0.01)
+                except SimplificationTimeOut:
+                    swallowed += 1
+    assert swallowed == 1
+
+
+def test_time_limit_lets_a_prompt_body_through():
+    from inflatox_torch.symbolic import _time_limit
+
+    with _time_limit(5.0):
+        value = sum(range(10))
+    assert value == 45
