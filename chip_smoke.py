@@ -36,15 +36,36 @@ passes or ends the script with a nonzero exit:
 10. the basin survey at cfg5e's size (4096 initial conditions × 2000 rows)
     through the default engine against ``engine="torch"`` on the card;
 11. timing of B6 and B5 against their plain versions (CUDA events, in
-    turns), and their device times from torch.profiler.
+    turns), and their device times from torch.profiler;
+12. the raw surfaces at the JAX package's cfg0 size: ``calc_V_array`` and
+    ``calc_H_array`` on hyperinflation at 8000² (kernel B1's ``potential``
+    and ``hesse`` kinds; ``calc_V_array`` also at ``precision="f32"``,
+    kernel B2) and ``flag_quantum_dif`` at 4096² (the ``gradient`` kind),
+    each against its plain version on the card (f64 rtol 5e-10, f32 1e-5)
+    and, for rows 0-63, on the CPU;
+13. the fp32 engine: hyperinflation ``complete_analysis`` at 4096² on B2
+    (cfg1's fp32 twin), the share within rtol 1e-5 of the plain f32 version,
+    all within it where the f32 and f64 plain versions agree within 1e-4;
+14. D5 ``complete_analysis`` at 1024² over cfg4's extent on B1 (the TPU's
+    range-extended engine maps onto f64), rtol 5e-10, and ε_V's finite share;
+15. EGNO ``consistency_rapidturn`` and ``complete_analysis`` at 2048² on
+    cfg3's window at ``precision="dd"`` (kernel B4), rtol 5e-10 against the
+    double-double plain version; at 64 grid points V, V_vv, V_wv, V_ww and
+    |∇V|² from the kernel within 1e-14 of 40-digit mpmath, f64's error
+    beside them;
+16. kernel B5b: the four on-trajectory scans at ``precision="dd"`` over
+    1,048,576 points spread over the EGNO window, rtol 5e-10;
+17. timing of B2, B4, B5b and B1's new kinds against their plain versions.
 
-The last lines are the kernel table (JSON), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Every phase requires identical NaN/±inf masks.  The last lines are the
+kernel table (JSON), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,9 +93,22 @@ GOLDEN_H = [[0.41206897, -1.05517241], [-1.05517241, -0.07873563]]
 B_SOLVE, STEPS = 4096, 2000  # bench cfg5d / cfg5e
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F64_OPS_PER_S = 33.5e12  # H100 SXM f64 outside the tensor cores
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # operations of the complete-analysis point tail (csrc/anguelova.cuh), fabs
-# and comparisons not counted
+# and comparisons not counted; of the rapid-turn tail
 TAIL_OPS = 41
+RAPIDTURN_TAIL_OPS = 8
+RTOL_F32 = 1e-5  # kernel B2 against its plain f32 version
+RTOL_MPMATH = 1e-14  # B4's model functions against 40-digit mpmath
+CFG0_N = 8000  # the reference's calc_V_array default (bench.py cfg0)
+EGNO_EXTENT = (0.46, 0.50, 0.0, 3.141592653589793)  # bench.py cfg3
+EGNO_ARGS = {"m": 1e-3, "a": 0.5, "c": 1000.0, "alpha": 1.0}
+D5_EXTENT = (0.1, 36.0, 0.0, 4 * 3.141592653589793)  # bench.py cfg4
+D5_ARGS = {"V0": -1.17e-8, "N": 1000.0, "g_s": 0.01, "l_s": 501.961, "u": 50 * 501.961,
+           "q": 1.0, "p": 5.0, "a0": 0.001, "a1": 0.0005, "b1": 0.001}
+# f64 operations of one double-double operation in csrc/dd.cuh (add: two
+# TwoSums and two quick ones; mul: FMA TwoProd; div: three quotient digits)
+DD_OPS = {"add": 20, "mul": 9, "div": 70, "sqrt": 33, "exp": 676, "log": 726, "demoted": 2}
 
 
 class SmokeFailure(Exception):
@@ -94,7 +128,8 @@ def run(cmd):
 def compare(got, want, rtol=RTOL):
     """(max relative error, max absolute error, share bit-identical) of two
     tensors on one device; raises unless the NaN and ±inf masks are
-    identical and every finite value is within rtol (atol 0)."""
+    identical and every finite value is within rtol (atol 0; an infinite
+    rtol only reports)."""
     import torch
 
     for mask in (torch.isnan, torch.isposinf, torch.isneginf):
@@ -102,7 +137,7 @@ def compare(got, want, rtol=RTOL):
     finite = torch.isfinite(want)
     diff = (got - want).abs()
     scale = want.abs()
-    check(bool((diff[finite] <= rtol * scale[finite]).all()),
+    check(rtol == float("inf") or bool((diff[finite] <= rtol * scale[finite]).all()),
           f"values differ beyond rtol {rtol}")
     nonzero = finite & (scale > 0)
     rel = (diff[nonzero] / scale[nonzero]).max().item() if nonzero.any() else 0.0
@@ -126,10 +161,10 @@ def scan_and_check(al, art, args, extent, n, label):
     from inflatox_torch.ops.cuda_kernels import evaluate_points
     from inflatox_torch.ops.grid import axis_coords
 
-    cuda_kernels.LAUNCHES = 0
+    reset_counts()
     maps = al.complete_analysis(args, *extent, n, n, progress=False, output="f64_device")
     torch.cuda.synchronize()
-    launches = cuda_kernels.LAUNCHES
+    launches = cuda_kernels.launches()
     check(launches > 0, f"{label}: the main path launched no kernel")
     maps = torch.stack(maps)
     check(maps.shape == (6, n, n) and maps.dtype == torch.float64,
@@ -202,11 +237,11 @@ def profiled_ms(fn, name, n):
     return f"not measured (trace holds: {held or 'nothing'})"
 
 
-def bound(n_bytes, n_ops):
-    """(least ms, what bounds it) for moving n_bytes and doing n_ops f64
-    operations on one H100."""
+def bound(n_bytes, n_ops, ops_per_s=F64_OPS_PER_S):
+    """(least ms, what bounds it) for moving n_bytes and doing n_ops
+    operations (f64 by default) on one H100."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F64_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -255,9 +290,64 @@ def lowered_ops(lowered, outputs=None):
 
 
 def point_ops(art):
-    """Operations per point of the complete-analysis kind (B1, B5)."""
-    return (lowered_ops(art.potential) + lowered_ops(art._hesse, (0, 2, 3))
+    """Operations per point of the complete-analysis kind (B1, B5): V, the
+    Hesse (f_hesse computes all four components), |∇V|² and the tail."""
+    return (lowered_ops(art.potential) + lowered_ops(art._hesse)
             + lowered_ops(art.grad_square) + TAIL_OPS)
+
+
+def _dd_node_ops(node):
+    """f64 operations of one node of a lowered function rewritten into
+    double-double (inflatox_torch.lowering.dd_lowering), by DD_OPS;
+    subexpressions of constants only are not counted."""
+    if not any(isinstance(n, (ast.Name, ast.Subscript)) for n in ast.walk(node)):
+        return 0
+    if isinstance(node, ast.BinOp):
+        op = {ast.Add: "add", ast.Sub: "add", ast.Mult: "mul", ast.Div: "div"}[type(node.op)]
+        return DD_OPS[op] + _dd_node_ops(node.left) + _dd_node_ops(node.right)
+    if isinstance(node, ast.UnaryOp):
+        return _dd_node_ops(node.operand)
+    if isinstance(node, ast.Call):
+        func = node.func
+        inner = sum(_dd_node_ops(a) for a in node.args)
+        if isinstance(func, ast.Name) and func.id == "_ipow":
+            exponent = abs(ast.literal_eval(node.args[1]))
+            mults = exponent.bit_length() - 1 + bin(exponent).count("1") - 1
+            negative = ast.literal_eval(node.args[1]) < 0
+            return _dd_node_ops(node.args[0]) + mults * DD_OPS["mul"] + negative * DD_OPS["div"]
+        if isinstance(func, ast.Attribute):
+            name = {"pow": None, "sqrt": "sqrt", "exp": "exp", "log": "log"}.get(
+                func.attr, "demoted")
+            if name is None:  # exp(y log x)
+                return inner + DD_OPS["log"] + DD_OPS["mul"] + DD_OPS["exp"]
+            return inner + DD_OPS[name]
+        return inner
+    return 0
+
+
+def dd_lowered_ops(lowered, outputs=None):
+    """f64 operations of a lowered function evaluated in double-double."""
+    from inflatox_torch.lowering.dd_lowering import dd_tree
+
+    total = 0
+    for stmt in dd_tree(lowered).body:
+        if isinstance(stmt, ast.Assign):
+            total += _dd_node_ops(stmt.value)
+        elif isinstance(stmt, ast.Return):
+            value = stmt.value
+            elts = value.elts if isinstance(value, ast.Tuple) else [value]
+            chosen = elts if outputs is None else [elts[k] for k in outputs]
+            total += sum(_dd_node_ops(e) + 1 for e in chosen)  # + the demotion
+    return total
+
+
+def dd_point_ops(art, kind):
+    """f64 operations per point of kernels B4/B5b: the double-double model
+    functions the kind needs, then the f64 tail."""
+    ops = dd_lowered_ops(art.potential) + dd_lowered_ops(art._hesse)
+    if kind == "complete_analysis":
+        return ops + dd_lowered_ops(art.grad_square) + TAIL_OPS
+    return ops + RAPIDTURN_TAIL_OPS
 
 
 def attempt_ops(art, solver):
@@ -362,6 +452,97 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
             "n_bytes": n_bytes}
 
 
+def cpu_band(art, kind, args, extent, shape, rows, precision="f64"):
+    """The plain version on the CPU for grid rows 0 .. rows-1."""
+    from inflatox_torch.ops.cuda_kernels import evaluate_points
+    from inflatox_torch.ops.dd import DD
+    from inflatox_torch.ops.grid import axis_coords
+
+    n1 = shape[1]
+    a0 = axis_coords(extent[0], extent[1], shape[0], "cpu", precision)
+    a1 = axis_coords(extent[2], extent[3], n1, "cpu", precision)
+    if precision == "dd":
+        xs = (DD(a0.hi[:rows, None].expand(rows, n1), a0.lo[:rows, None].expand(rows, n1)),
+              DD(a1.hi[None].expand(rows, n1), a1.lo[None].expand(rows, n1)))
+    else:
+        xs = (a0[:rows, None].expand(rows, n1), a1[None].expand(rows, n1))
+    return evaluate_points(art, kind, args, xs, precision)
+
+
+def grid_check(art, kind, args, extent, shape, precision, got, label, rtol=RTOL, rows=64,
+               cpu_rtol=None):
+    """A grid kernel's output against its plain version on the card and, for
+    rows 0 .. rows-1, on the CPU (at ``cpu_rtol``, default ``rtol``; masks
+    always identical); returns (max abs error on the card, the plain
+    version's output)."""
+    import torch
+
+    from inflatox_torch.ops.cuda_kernels import scan_torch
+
+    plain = scan_torch(art, kind, args, extent, shape, got.device, precision)
+    rel, absolute, same = compare(got, plain, rtol)
+    print(f"{label}: kernel vs plain torch on the card: max_rel={rel:.3e} "
+          f"max_abs={absolute:.3e} bit_identical={same:.6f}")
+    cpu_rel, _, cpu_same = compare(got[:, :rows].cpu(),
+                                   cpu_band(art, kind, args, extent, shape, rows, precision),
+                                   rtol if cpu_rtol is None else cpu_rtol)
+    print(f"{label}: rows 0-{rows - 1} vs plain torch on the CPU: max_rel={cpu_rel:.3e} "
+          f"bit_identical={cpu_same:.6f}")
+    torch.cuda.synchronize()
+    return absolute, plain
+
+
+def launched(kernel, label):
+    """The launches of ``kernel`` since the counts were set to 0; fails when
+    there were none."""
+    from inflatox_torch.ops import cuda_kernels
+
+    count = cuda_kernels.LAUNCHES_BY_KERNEL[kernel]
+    check(count > 0, f"{label}: kernel {kernel} was launched no time")
+    return count
+
+
+def reset_counts():
+    from inflatox_torch.ops import cuda_kernels
+
+    for key in cuda_kernels.LAUNCHES_BY_KERNEL:
+        cuda_kernels.LAUNCHES_BY_KERNEL[key] = 0
+
+
+def mp_model(art, args):
+    """V, V_vv, V_wv, V_ww and |∇V|² of the model at 40 digits (sympy's
+    expressions through mpmath), as a function of two mpf coordinates."""
+    import sympy
+
+    m = art.model
+    exprs = [m.potential, m.hesse_cmp[0][0], m.hesse_cmp[1][0], m.hesse_cmp[1][1],
+             m.gradient_square]
+    symbols = sorted(set().union(*(e.free_symbols for e in exprs)), key=str)
+    fn = sympy.lambdify(symbols, exprs, modules="mpmath", cse=True)
+
+    def run(x0, x1):
+        import mpmath
+
+        values = []
+        for sym in symbols:
+            slot = art.symbol_dictionary[str(sym)]
+            values.append(mpmath.mpf(float(args[int(slot[5:-1])])) if slot.startswith("args[")
+                          else (x0, x1)[int(slot[2:-1])])
+        return fn(*values)
+
+    return run
+
+
+def adaptive_turns(kernel, plain):
+    """in_turns with window lengths set from one call of each (about 0.2 s of
+    kernel work, at most 20 plain calls a window)."""
+    one_kernel = time_ms(kernel, 1, 1)
+    one_plain = time_ms(plain, 1, 1)
+    n_kernel = max(3, min(N_TIMED_KERNEL, int(200 / max(one_kernel, 1e-3))))
+    n_plain = max(1, min(N_TIMED, int(1000 / max(one_plain, 1e-3))))
+    return in_turns(kernel, plain, n_kernel, n_plain, 0) + (n_kernel, n_plain)
+
+
 def points_and_check(al, art, args, pts, label):
     """The four on-trajectory scans through ``GeneralisedAL``, counted,
     then kernel vs plain version on the card and, for the first 4096
@@ -371,11 +552,11 @@ def points_and_check(al, art, args, pts, label):
     from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.cuda_kernels import scan_points_cuda, scan_points_torch
 
-    cuda_kernels.LAUNCHES = 0
+    reset_counts()
     ot = al.complete_analysis_ot(args, pts, progress=False)
     singles = {kind: getattr(al, kind + "_ot")(args, pts, progress=False)
                for kind in ("consistency", "consistency_rapidturn", "epsilon_v")}
-    launches = cuda_kernels.LAUNCHES
+    launches = cuda_kernels.launches()
     check(launches > 0, f"{label}: the on-trajectory scans launched no kernel")
     n = pts.shape[0]
     check(len(ot) == 6 and all(o.shape == (n, 1) for o in ot), f"{label}: output shapes")
@@ -446,6 +627,13 @@ def main() -> int:
     ).build(guesses=[[0, 1, 0], [0, 0, 1]])
     three = inflatox_torch.Compiler(three_model, silent=True).compile()
     t2 = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+    egno = inflatox_torch.CompiledModel.load(os.path.join(fixtures, "egno_bundle.json"))
+    egno_args = inflatox_torch.models._args_by_symbol(egno.model, EGNO_ARGS)
+    d5 = inflatox_torch.CompiledModel.load(os.path.join(fixtures, "d5_bundle.json"))
+    d5_args = inflatox_torch.models._args_by_symbol(d5.model, D5_ARGS)
+    t_bundles = time.perf_counter() - t2
+    t2 = time.perf_counter()
 
     def timed(load, source):
         t = time.perf_counter()
@@ -457,6 +645,9 @@ def main() -> int:
         "B6 hyperinflation": (load_solver, art.cuda_solver_source()),
         "B1/B5 angular": (load_grid_scan, ang.cuda_source()),
         "B6 3-field": (load_solver, three.cuda_solver_source()),
+        "B2 hyperinflation": (load_grid_scan, art.cuda_source("f32")),
+        "B1/B5a D5": (load_grid_scan, d5.cuda_source("f64")),
+        "B4/B5b EGNO": (load_grid_scan, egno.cuda_source("dd")),
     }
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
@@ -464,9 +655,19 @@ def main() -> int:
     t3 = time.perf_counter()
     al = GeneralisedAL(art, device=device, validation_seed=7)
     print(f"build: hyperinflation model {t1 - t0:.2f} s, angular and 3-field models "
-          f"{t2 - t1:.2f} s; kernel B1 first use (nvcc + load) "
-          f"{built['B1/B5 hyperinflation'][1]:.2f} s; all four kernel libraries, "
-          f"built at once, {t3 - t2:.2f} s")
+          f"{t2 - t1 - t_bundles:.2f} s, EGNO and D5 from their bundles {t_bundles:.2f} s; "
+          f"kernel B1 first use (nvcc + load) {built['B1/B5 hyperinflation'][1]:.2f} s; all "
+          f"{len(jobs)} kernel libraries, built at once, {t3 - t2:.2f} s; nvcc per library: "
+          + ", ".join(f"{name} {lib.build_seconds:.2f} s" for name, (lib, _) in built.items()))
+    for name in ("B2 hyperinflation", "B1/B5a D5", "B4/B5b EGNO"):
+        log = built[name][0].build_log.read_text()
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(b) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", log)]
+        print(f"ptxas, {name}: {len(regs)} functions, registers {min(regs)}-{max(regs)}, "
+              f"spill bytes (stores + loads) at most {max(spills)}, stack frame at most "
+              f"{max(stack)} bytes")
 
     # 3. golden values
     v = al.calc_V([2.0, -2.0], [1.0])
@@ -652,6 +853,232 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
                 "library_ms": None}
 
+    # 12. the raw surfaces at cfg0's size (8000²) and flag_quantum_dif at 4096²
+    start, stop, n0 = [DOC_EXTENT[0], DOC_EXTENT[2]], [DOC_EXTENT[1], DOC_EXTENT[3]], CFG0_N
+    surfaces = {}
+    for kind, precision, kernel_name in (("potential", "f64", "B1"), ("hesse", "f64", "B1"),
+                                         ("potential", "f32", "B2")):
+        label = f"{kind} hyperinflation {n0}² {precision}"
+        reset_counts()
+        t = time.perf_counter()
+        if kind == "potential":
+            user = al.calc_V_array(args, start, stop, [n0, n0], precision=precision)[None]
+        else:
+            user = al.calc_H_array(args, *DOC_EXTENT, [n0, n0]).reshape(4, n0, n0)
+        host_s = time.perf_counter() - t
+        launches = launched(kernel_name, label)
+        check(user.shape[1:] == (n0, n0) and np.isfinite(user).mean() > 0.99,
+              f"{label}: output shape {user.shape} or too few finite values")
+        got = scan_cuda(art, kind, args, DOC_EXTENT, (n0, n0), device, precision)
+        check(np.array_equal(got.cpu().numpy(), user, equal_nan=True),
+              f"{label}: the user-facing call differs from the kernel's own")
+        rtol = RTOL_F32 if precision == "f32" else RTOL
+        max_abs, _ = grid_check(art, kind, args, DOC_EXTENT, (n0, n0), precision, got, label, rtol)
+        print(f"{label}: launches={launches}; user-facing call {host_s:.3f} s host clock "
+              f"(numpy, {user.nbytes} bytes)")
+        surfaces[(kind, precision)] = (launches, max_abs)
+        del got, user
+    n_flag = 4096
+    label = f"flag_quantum_dif hyperinflation {n_flag}²"
+    reset_counts()
+    flags = al.flag_quantum_dif(args, *DOC_EXTENT, n_flag, n_flag, progress=False,
+                                accuracy=0.3)
+    flag_launches = launched("B1", label)
+    grads = scan_cuda(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device)
+    flag_max_abs, plain_grads = grid_check(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag),
+                                           "f64", grads, label)
+    check(np.array_equal(flags, (plain_grads.abs() <= 0.3).all(dim=0).cpu().numpy()),
+          f"{label}: the map differs from the plain version's")
+    print(f"{label}: launches={flag_launches}; {flags.mean():.6f} of the points flagged "
+          f"(|∂V| <= 0.3)")
+    del grads, plain_grads
+
+    # 13. the fp32 engine: complete_analysis at 4096² on B2
+    n = 4096
+    label = f"hyperinflation complete_analysis {n}² f32"
+    reset_counts()
+    maps32 = torch.stack(al.complete_analysis(args, *DOC_EXTENT, n, n, progress=False,
+                                              precision="f32", output="f64_device"))
+    b2_launches = launched("B2", label)
+    check(maps32.dtype == torch.float32 and maps32.shape == (6, n, n), f"{label}: maps")
+    # the CPU's f32 divides where the card multiplies by a reciprocal, and the
+    # maps amplify that last bit (ε_H's condition reaches 1e4): on the CPU
+    # rows the masks must agree and the values are reported
+    b2_max_abs, plain32 = grid_check(art, "complete_analysis", args, DOC_EXTENT, (n, n), "f32",
+                                     maps32, label, RTOL_F32, cpu_rtol=float("inf"))
+    plain64 = scan_torch(art, "complete_analysis", args, DOC_EXTENT, (n, n), device)
+    diff = (maps32.double() - plain32.double()).abs()
+    within = ((diff <= RTOL_F32 * plain32.double().abs()) | (maps32 == plain32)
+              | (torch.isnan(maps32) & torch.isnan(plain32)))
+    settled = torch.isfinite(plain64) & ((plain32.double() - plain64).abs()
+                                          <= 1e-4 * plain64.abs())
+    check(bool(within[settled].all()), f"{label}: a settled point beyond rtol {RTOL_F32}")
+    print(f"{label}: launches={b2_launches}; share within rtol {RTOL_F32} of the plain f32 "
+          f"version {within.double().mean().item():.6f}; points where the f32 and f64 plain "
+          f"versions agree within 1e-4: {settled.double().mean().item():.6f}, all within")
+    del maps32, plain32, plain64, diff, within, settled
+
+    # 14. D5 on B1 (the TPU's range-extended engine maps onto f64)
+    n_d5 = 1024
+    label = f"D5 complete_analysis {n_d5}² f64"
+    d5_al = GeneralisedAL(d5, device=device, validate_basis=False)
+    reset_counts()
+    d5_maps = torch.stack(d5_al.complete_analysis(d5_args, *D5_EXTENT, n_d5, n_d5,
+                                                  progress=False, output="f64_device"))
+    d5_launches = launched("B1", label)
+    # D5's V_vw cancels catastrophically (ROADMAP C7): the last bit in which
+    # the CPU's log/cos/sqrt part from CUDA's moves consistency, η_∥ and δ
+    # far beyond 5e-10, so on the CPU rows the masks must agree and the
+    # values are reported
+    d5_max_abs, _ = grid_check(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5), "f64",
+                               d5_maps, label, cpu_rtol=float("inf"))
+    print(f"{label}: launches={d5_launches}; ε_V finite share "
+          f"{torch.isfinite(d5_maps[1]).double().mean().item():.6f}, nanmax(consistency) "
+          f"{nanmax(d5_maps[0]):.6f}")
+    check(nanmax(d5_maps[0]) <= 1.0 and torch.isfinite(d5_maps[1]).double().mean() > 0.5,
+          f"{label}: consistency above 1 or too few finite ε_V")
+
+    # 15. EGNO on B4 (double-double)
+    n_e = 2048
+    egno_al = GeneralisedAL(egno, device=device, validate_basis=False)
+    b4 = {}
+    for kind in ("consistency_rapidturn", "complete_analysis"):
+        label = f"EGNO {kind} {n_e}² dd"
+        reset_counts()
+        out = getattr(egno_al, kind)(egno_args, *EGNO_EXTENT, n_e, n_e, progress=False,
+                                     precision="dd", output="f64_device")
+        out = torch.stack(out) if isinstance(out, tuple) else out[None]
+        b4[kind] = [launched("B4", label)]
+        b4[kind].append(grid_check(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e), "dd", out,
+                                   label, rows=8)[0])
+        check(nanmax(out[0]) <= 1.0, f"{label}: consistency above 1")
+    reset_counts()
+    v_dd = torch.from_numpy(egno_al.calc_V_array(egno_args, EGNO_EXTENT[::2], EGNO_EXTENT[1::2],
+                                                 [n_e, n_e], precision="dd"))
+    h_dd = torch.from_numpy(egno_al.calc_H_array(egno_args, *EGNO_EXTENT, [n_e, n_e],
+                                                 precision="dd")).reshape(4, n_e, n_e)
+    eps_dd = scan_cuda(egno, "epsilon_v", egno_args, EGNO_EXTENT, (n_e, n_e), device, "dd")[0]
+    launched("B4", "EGNO calc_V_array/calc_H_array dd")
+    f64_model = [scan_torch(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e), device)
+                 for kind in ("potential", "hesse", "epsilon_v")]
+    import mpmath
+
+    reference = mp_model(egno, egno_args)
+    rng = np.random.default_rng(15)
+    idx = list(zip(rng.integers(0, n_e, 64), rng.integers(0, n_e, 64)))
+    x0a, x0b, x1a, x1b = EGNO_EXTENT
+    dx0, dx1 = (x0b - x0a) / n_e, (x1b - x1a) / n_e
+    worst_dd, worst_f64 = [0.0] * 5, [0.0] * 5
+    with mpmath.workdps(40):
+        for i, j in idx:
+            i, j = int(i), int(j)
+            exact = reference(mpmath.mpf(x0a) + i * mpmath.mpf(dx0),
+                              mpmath.mpf(x1a) + j * mpmath.mpf(dx1))
+            rounded = reference(mpmath.mpf(x0a + i * dx0), mpmath.mpf(x1a + j * dx1))
+            v = v_dd[i, j].item()
+            got = [v, h_dd[0, i, j].item(), h_dd[2, i, j].item(), h_dd[3, i, j].item(),
+                   2.0 * eps_dd[i, j].item() * v * v]
+            v64 = f64_model[0][0, i, j].item()
+            f64 = [v64, f64_model[1][0, i, j].item(), f64_model[1][2, i, j].item(),
+                   f64_model[1][3, i, j].item(), 2.0 * f64_model[2][0, i, j].item() * v64 * v64]
+            for k in range(5):
+                worst_dd[k] = max(worst_dd[k], abs(float((got[k] - exact[k]) / exact[k])))
+                worst_f64[k] = max(worst_f64[k], abs(float((f64[k] - rounded[k]) / rounded[k])))
+    names = ("V", "V_vv", "V_wv", "V_ww", "|∇V|²")
+    print(f"EGNO {n_e}² dd, kernel B4 at 64 grid points vs 40-digit mpmath, largest relative "
+          "error (f64 beside it): " + ", ".join(
+              f"{nm} {a:.3e} (f64 {b:.3e})" for nm, a, b in zip(names, worst_dd, worst_f64)))
+    check(max(worst_dd) <= RTOL_MPMATH, f"EGNO dd: a model function beyond {RTOL_MPMATH} "
+          "of mpmath")
+    del v_dd, h_dd, eps_dd, f64_model, out
+
+    # 16. B5b over 1,048,576 points spread over the EGNO window
+    n_egno = 1 << 20
+    rng = np.random.default_rng(16)
+    egno_pts = torch.tensor(np.stack([rng.uniform(x0a, x0b, n_egno),
+                                      rng.uniform(x1a, x1b, n_egno)], 1), device=device)
+    label = f"B5b EGNO {n_egno} points dd"
+    reset_counts()
+    ot = egno_al.complete_analysis_ot(egno_args, egno_pts, progress=False, precision="dd")
+    singles = {kind: getattr(egno_al, kind + "_ot")(egno_args, egno_pts, progress=False,
+                                                    precision="dd")
+               for kind in ("consistency", "consistency_rapidturn", "epsilon_v")}
+    b5b_launches = launched("B5b", label)
+    b5b_max_abs = 0.0
+    for kind, user in [("complete_analysis", np.concatenate(ot, axis=1).T), *singles.items()]:
+        got = scan_points_cuda(egno, kind, egno_args, egno_pts, "dd")
+        check(np.array_equal(got.cpu().numpy().reshape(user.shape), user, equal_nan=True),
+              f"{label} {kind}: the user-facing call differs from the kernel's own")
+        rel, absolute, same = compare(got, scan_points_torch(egno, kind, egno_args, egno_pts,
+                                                             "dd"))
+        b5b_max_abs = max(b5b_max_abs, absolute)
+        cpu_rel, _, cpu_same = compare(got[:, :4096].cpu(), scan_points_torch(
+            egno, kind, egno_args, egno_pts[:4096].cpu(), "dd"))
+        print(f"{label} {kind}: kernel vs plain torch on the card: max_rel={rel:.3e} "
+              f"max_abs={absolute:.3e} bit_identical={same:.6f}; first 4096 points vs the "
+              f"CPU: max_rel={cpu_rel:.3e} bit_identical={cpu_same:.6f}")
+    print(f"{label}: launches={b5b_launches}")
+
+    # 17. timing of B2, B4, B5b and B1's new kinds, each in turns with its
+    # plain version
+    timed_rows = []
+
+    def timed_row(name, source, replaces, launches, max_abs, kernel, plain, n_bytes, n_ops,
+                  ops_per_s=F64_OPS_PER_S):
+        ms, plain_ms, windows, n_k, n_p = adaptive_turns(kernel, plain)
+        bnd = bound(n_bytes, n_ops, ops_per_s)
+        print(f"timing {name} on {card}: kernel {ms:.4f} ms (windows {windows[0]:.4f}, "
+              f"{windows[1]:.4f}; {n_k} chained launches each), plain torch {plain_ms:.4f} ms "
+              f"(windows {windows[2]:.4f}, {windows[3]:.4f}; {n_p} calls each); bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; {n_bytes} bytes, {n_ops:.4e} operations)")
+        timed_rows.append(row(name, source, replaces, launches, max_abs, ms, plain_ms, bnd))
+
+    grid_src, pk = "inflatox_torch/csrc/grid_scan.cu", "inflatox_tpu/ops/pallas_kernels.py"
+    big = (n0, n0)
+    timed_row(f"grid_scan_b1_potential_{n0}", grid_src, f"{pk}:388",
+              *surfaces[("potential", "f64")],
+              lambda: scan_cuda(art, "potential", args, DOC_EXTENT, big, device),
+              lambda: scan_torch(art, "potential", args, DOC_EXTENT, big, device),
+              n0 * n0 * 8, lowered_ops(art.potential) * n0 * n0)
+    timed_row(f"grid_scan_b1_hesse_{n0}", grid_src, f"{pk}:388", *surfaces[("hesse", "f64")],
+              lambda: scan_cuda(art, "hesse", args, DOC_EXTENT, big, device),
+              lambda: scan_torch(art, "hesse", args, DOC_EXTENT, big, device),
+              4 * n0 * n0 * 8, lowered_ops(art._hesse) * n0 * n0)
+    timed_row(f"grid_scan_b1_gradient_{n_flag}", grid_src, f"{pk}:388", flag_launches,
+              flag_max_abs,
+              lambda: scan_cuda(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device),
+              lambda: scan_torch(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device),
+              2 * n_flag * n_flag * 8, lowered_ops(art._grad) * n_flag * n_flag)
+    timed_row(f"grid_scan_b2_f32_potential_{n0}", grid_src, f"{pk}:231",
+              *surfaces[("potential", "f32")],
+              lambda: scan_cuda(art, "potential", args, DOC_EXTENT, big, device, "f32"),
+              lambda: scan_torch(art, "potential", args, DOC_EXTENT, big, device, "f32"),
+              n0 * n0 * 4, lowered_ops(art.potential) * n0 * n0, F32_OPS_PER_S)
+    timed_row(f"grid_scan_b2_f32_complete_analysis_{n}", grid_src, f"{pk}:231", b2_launches,
+              b2_max_abs,
+              lambda: scan_cuda(art, "complete_analysis", args, DOC_EXTENT, (n, n), device, "f32"),
+              lambda: scan_torch(art, "complete_analysis", args, DOC_EXTENT, (n, n), device,
+                                 "f32"),
+              6 * n * n * 4, point_ops(art) * n * n, F32_OPS_PER_S)
+    timed_row(f"grid_scan_b1_d5_{n_d5}", grid_src, f"{pk}:835", d5_launches, d5_max_abs,
+              lambda: scan_cuda(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5),
+                                device),
+              lambda: scan_torch(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5),
+                                 device),
+              6 * n_d5 * n_d5 * 8, point_ops(d5) * n_d5 * n_d5)
+    for kind, planes in (("consistency_rapidturn", 1), ("complete_analysis", 6)):
+        timed_row(f"grid_scan_b4_dd_egno_{kind}_{n_e}", grid_src, f"{pk}:1536", *b4[kind],
+                  lambda kind=kind: scan_cuda(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e),
+                                              device, "dd"),
+                  lambda kind=kind: scan_torch(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e),
+                                               device, "dd"),
+                  planes * n_e * n_e * 8, dd_point_ops(egno, kind) * n_e * n_e)
+    timed_row(f"points_scan_b5b_dd_egno_{n_egno}", grid_src, f"{pk}:1101", b5b_launches,
+              b5b_max_abs,
+              lambda: scan_points_cuda(egno, "complete_analysis", egno_args, egno_pts, "dd"),
+              lambda: scan_points_torch(egno, "complete_analysis", egno_args, egno_pts, "dd"),
+              n_egno * (16 + 6 * 8), dd_point_ops(egno, "complete_analysis") * n_egno)
+
     print(json.dumps({"kernels": [
         row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",
             "inflatox_tpu/ops/pallas_kernels.py:388", b1_launches, b1_max_abs, b1_ms,
@@ -665,6 +1092,7 @@ def main() -> int:
         row("solver_b6_rk4", "inflatox_torch/csrc/solver.cu",
             "inflatox_tpu/ops/pallas_solver.py:173", rk4["launches"], rk4["max_abs"], rk4_ms,
             rk4_plain_ms, rk4["bound"]),
+        *timed_rows,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

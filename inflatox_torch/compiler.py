@@ -8,9 +8,11 @@ the other.  Beyond the JAX package, :meth:`CompiledModel.cuda_source` and
 :meth:`CompiledModel.cuda_solver_source` emit the per-model headers that the
 hand-written CUDA grid-scan and solver kernels include.
 
-The TPU-only emulation bundles of the JAX package (``df32_fns``,
-``edf_fns``, ``tf_fns``, ``solver_df32_fns``, ``df32_compatible``) have no
-counterpart: Hopper computes in native IEEE f64.
+Of the JAX package's emulation bundles only ``tf_fns`` (triple-f32, for
+EGNO-class cancellation) has a counterpart, :meth:`CompiledModel.dd_fns`
+(double-double).  ``df32_fns``, ``edf_fns``, ``solver_df32_fns`` and
+``df32_compatible`` have none: Hopper computes in native IEEE f64, with the
+full exponent range.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ class CompiledModel:
         self._model = model
         self._registry = registry
         self._cse_opts = {"cse": cse, "max_cses": max_cses}
-        self._cuda_source = None
+        self._cuda_source = {}
         self._cuda_solver_source = None
+        self._dd_fns = None
         self.model_name = model.model_name
         self.n_fields = model.dim
         self.n_parameters = registry.n_parameters
@@ -172,14 +175,32 @@ class CompiledModel:
             rows[a][b] = g[k]
         return torch.stack([torch.stack(r) for r in rows])
 
-    def cuda_source(self) -> str:
-        """The per-model CUDA/C++ header the grid-scan kernel includes
-        (``f_V``, ``f_h00``, ``f_h10``, ``f_h11``, ``f_gsq``), memoised."""
-        if self._cuda_source is None:
+    def cuda_source(self, precision: str = "f64") -> str:
+        """The per-model CUDA/C++ header the grid-scan kernels include
+        (``f_V``, ``f_hesse``, ``f_gsq``, ``f_grad``) in ``precision``
+        (``"f64"``, ``"f32"`` or ``"dd"``), memoised per precision."""
+        if precision not in self._cuda_source:
             from .lowering.cuda_codegen import generate_header  # noqa: PLC0415
 
-            self._cuda_source = generate_header(self)
-        return self._cuda_source
+            self._cuda_source[precision] = generate_header(self, precision)
+        return self._cuda_source[precision]
+
+    def dd_fns(self) -> dict:
+        """The model functions in double-double (the counterpart of the JAX
+        package's ``tf_fns``): ``potential``, ``grad_square``, ``grad`` and
+        ``hesse`` (the flat tuple), each taking sequences of
+        :class:`~inflatox_torch.ops.dd.DD` and returning DD values;
+        memoised."""
+        if self._dd_fns is None:
+            from .lowering.dd_lowering import compile_dd  # noqa: PLC0415
+
+            self._dd_fns = {
+                "potential": compile_dd(self.potential),
+                "grad_square": compile_dd(self.grad_square),
+                "grad": compile_dd(self._grad),
+                "hesse": compile_dd(self._hesse),
+            }
+        return self._dd_fns
 
     def cuda_solver_source(self) -> str:
         """The per-model CUDA/C++ header the background-solver kernel

@@ -2,15 +2,29 @@
 
 The port of ``inflatox_tpu/consistency_conditions.py`` (reference:
 ``python/inflatox/consistency_conditions.py`` plus the Rust grid scans it
-calls).  A grid scan is one launch of kernel B1, the hand-written CUDA grid
-scan (:mod:`inflatox_torch.ops.cuda_kernels`), on a CUDA device, or its plain
-PyTorch version on any device; an on-trajectory scan (``*_ot``) is one launch
-of kernel B5, the same analysis at given points, or its plain version.
+calls).  A grid scan (the four analyses, ``calc_V_array``,
+``calc_H_array``, ``flag_quantum_dif``) of a 2-field model is one launch of
+a hand-written CUDA grid-scan kernel (:mod:`inflatox_torch.ops.cuda_kernels`)
+on a CUDA device, or its plain PyTorch version on any device; an
+on-trajectory scan (``*_ot``) is one launch of the same analysis at given
+points, or its plain version.
 
 Devices are explicit: ``GeneralisedAL(artifact, device=...)`` computes on
 that device only.  ``engine=None`` resolves to ``"cuda"`` (the kernel) on a
-CUDA device and to ``"torch"`` (the plain version) on a CPU device.  The
-``threads`` keyword of the reference is accepted and ignored.
+CUDA device and to ``"torch"`` (the plain version) on a CPU device.
+``precision`` picks the arithmetic, in the kernel and in its plain version
+alike:
+
+* ``None`` or ``"f64"`` — IEEE f64 (kernel B1 on grids, B5a on points): what
+  the JAX package's ``"pallas_df64"`` and ``"pallas_edf64"`` emulate;
+* ``"f32"`` — float32 (kernel B2), the JAX package's ``engine="pallas"``;
+  grids only, as there.  ``dtype=float32`` is the JAX package's spelling;
+* ``"dd"`` — the model functions in double-double (about 106 bits), demoted
+  to f64 for the f64 analysis tail (kernel B4 on grids, B5b on points): the
+  JAX package's ``"pallas_tf64"``, for models whose Hesse cancels
+  catastrophically (EGNO, docs/numerics.md §8).
+
+The ``threads`` keyword of the reference is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -19,8 +33,9 @@ import numpy as np
 import torch
 
 from .compiler import CompiledModel
-from .ops.cuda_kernels import scan_cuda, scan_points_cuda, scan_points_torch, scan_torch
-from .utils.devices import resolve_device, resolve_engine
+from .ops.cuda_kernels import PRECISIONS, scan_cuda, scan_points_cuda, scan_points_torch, scan_torch
+from .ops.grid import grid_coords
+from .utils.devices import resolve_device, resolve_engine, resolve_precision
 from .utils.errors import BasisNormError, BasisOrthogonalityError, ShapeError
 from .utils.logging import Progress, log_warn
 
@@ -285,6 +300,77 @@ class InflationCondition:
         h = self.artifact.hesse(self._tensor(x), self._tensor(args))
         return h.cpu().numpy()
 
+    # ------------------------------------------------------------------ #
+    # potential / Hesse grid surfaces                                    #
+    # ------------------------------------------------------------------ #
+
+    def _array_scan(self, kind, args, start, stop, N, engine, precision):
+        """The V or Hesse surface on an endpoint-exclusive grid over
+        [start, stop) with N samples per axis (default 8000): for a 2-field
+        model one scan of the ``potential``/``hesse`` kind; for any other
+        field count the plain f64 torch evaluation, which is also the JAX
+        package's only path for those models (its ``"xla"`` branch).
+        Returns the (n_out, *N) tensor on the device."""
+        args = self._validate_args(args)
+        d = self.artifact.n_fields
+        N = [8000] * d if N is None else [int(n) for n in N]
+        start_stop = [(float(a), float(b)) for a, b in zip(start, stop)]
+        if len(start_stop) != d or len(N) != d:
+            raise ShapeError(
+                (d,), (len(start_stop),),
+                "expected start/stop/N with one entry per field-space coordinate",
+            )
+        precision = resolve_precision(precision)
+        if d == 2:
+            engine = resolve_engine(engine, self.device, f"kernel {PRECISIONS[precision].grid_kernel}")
+            scan = scan_cuda if engine == "cuda" else scan_torch
+            extent = (*start_stop[0], *start_stop[1])
+            return scan(self.artifact, kind, args, extent, N, self.device, precision)
+        if engine == "cuda" or precision != "f64":
+            raise ValueError(
+                f"the grid-scan kernels take 2-field models; this model has {d} "
+                'fields, which the plain f64 version computes (engine=None or "torch", '
+                'precision=None or "f64")'
+            )
+        resolve_engine(engine, self.device, "no kernel")
+        xs = grid_coords(start_stop, N, self.device)
+        p = self._tensor(args)
+        if kind == "potential":
+            v = self.artifact.potential(xs, p)
+            return torch.as_tensor(v, dtype=torch.float64, device=self.device).expand(N)[None]
+        return self.artifact.hesse(xs, p).reshape(d * d, *N)
+
+    def calc_V_array(self, args, start, stop, N=None, engine=None, precision=None) -> np.ndarray:
+        """Potential sampled on an n-D grid (endpoint-exclusive, see
+        :mod:`inflatox_torch.ops.grid`), default 8000 samples per axis
+        (consistency_conditions.py:67-101).  ``engine`` and ``precision`` as
+        in :meth:`GeneralisedAL.complete_analysis`, for a 2-field model
+        (kernel B1, B2 or B4 with the ``potential`` kind); any other field
+        count runs the plain f64 version.  Returns a numpy array (float32
+        for ``precision="f32"``)."""
+        out = self._array_scan("potential", args, start, stop, N, engine, precision)
+        return out[0].cpu().numpy()
+
+    def calc_H_array(self, args, x0_start, x0_stop, x1_start, x1_stop, N=None,
+                     engine=None, precision=None) -> np.ndarray:
+        """Projected Hesse matrix on a 2-D grid → shape (2, 2, N0, N1)
+        (consistency_conditions.py:119-156); :meth:`calc_H_array_nd` takes
+        any field count."""
+        self._validate_2field()
+        N = [8000, 8000] if N is None else [int(n) for n in N]
+        return self.calc_H_array_nd(args, [x0_start, x1_start], [x0_stop, x1_stop], N,
+                                    engine=engine, precision=precision)
+
+    def calc_H_array_nd(self, args, start, stop, N=None, engine=None,
+                        precision=None) -> np.ndarray:
+        """Projected Hesse matrix on an n-D grid → shape (d, d, *N), the
+        n-field grid evaluation of the reference's ``Hesse::hesse_array``
+        (hesse_bindings.rs:113-193).  ``engine`` and ``precision`` as in
+        :meth:`calc_V_array` (kernel: the ``hesse`` kind)."""
+        out = self._array_scan("hesse", args, start, stop, N, engine, precision)
+        d = self.artifact.n_fields
+        return out.reshape(d, d, *out.shape[1:]).cpu().numpy()
+
 
 _SCAN_MESSAGES = {
     "complete_analysis": "Calculating full analysis",
@@ -293,6 +379,7 @@ _SCAN_MESSAGES = {
         "Calculating consistency condition ONLY assuming rapid-turn"
     ),
     "epsilon_v": "Calculating potential slow-roll parameter ε_V ONLY",
+    "gradient": "Calculating raw potential gradient",
     "complete_analysis_ot": "Calculating full analysis on trajectory",
     "consistency_ot": "Calculating consistency condition ONLY on trajectory",
     "consistency_rapidturn_ot": (
@@ -314,38 +401,45 @@ class GeneralisedAL(InflationCondition):
     """
 
     def _grid_scan(self, kind, args, extent, shape, progress, threads, dtype,
-                   engine, output):
-        """Shared body of the four grid-scan methods.  Single-output kinds
-        return their one map; complete_analysis returns all six."""
+                   engine, output, precision):
+        """Shared body of the grid scans: the (n_out, N0, N1) result as
+        ``output`` asks (single-output kinds return their one map,
+        complete_analysis all six)."""
         del threads
-        if dtype is not None and dtype not in (torch.float64, np.float64):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: the port computes in float64 only; the "
-                "f32 kernel is ROADMAP B2"
-            )
-        if output == "pair":
-            raise NotImplementedError(
-                'output="pair" is a TPU (hi, lo) format; the port delivers '
-                '"f64" and "f64_device" (ROADMAP A6)'
-            )
-        if output not in ("f64", "f64_device"):
+        if output not in ("f64", "f64_device", "pair"):
             raise ValueError(
-                f"output must be 'f64' or 'f64_device', got {output!r}"
+                f"output must be 'f64', 'f64_device' or 'pair', got {output!r}"
             )
-        engine = resolve_engine(engine, self.device, "kernel B1")
+        precision = resolve_precision(precision, dtype)
+        if output == "pair" and precision == "f32":
+            raise ValueError(
+                'output="pair" needs precision "f64" or "dd": the f32 scan has no '
+                "(hi, lo) representation to expose"
+            )
+        out = self._scan(kind, args, extent, shape, progress, engine, precision, output)
+        if output == "pair":
+            hi = out.float()
+            lo = (out - hi.double()).float()
+            out = [(hi[k], lo[k]) for k in range(out.shape[0])]
+        if kind != "complete_analysis":
+            return out[0]
+        return tuple(out[k] for k in range(len(out)))
+
+    def _scan(self, kind, args, extent, shape, progress, engine, precision, output="f64"):
+        """One grid scan on the device (kernel or plain version); a numpy
+        array for ``output="f64"``, else the tensor on the device."""
+        engine = resolve_engine(engine, self.device, f"kernel {PRECISIONS[precision].grid_kernel}")
         self._validate_2field()
         args = self._validate_args(args)
         scan = scan_cuda if engine == "cuda" else scan_torch
         with Progress(_SCAN_MESSAGES[kind], enabled=progress,
                       total_ops=int(shape[0]) * int(shape[1])):
-            out = scan(self.artifact, kind, args, extent, shape, self.device)
+            out = scan(self.artifact, kind, args, extent, shape, self.device, precision)
             if output == "f64":
                 out = out.cpu().numpy()
             elif progress and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # honest finish time
-        if kind != "complete_analysis":
-            return out[0]
-        return tuple(out[k] for k in range(out.shape[0]))
+        return out
 
     def complete_analysis(
         self,
@@ -361,6 +455,7 @@ class GeneralisedAL(InflationCondition):
         dtype=None,
         engine: str | None = None,
         output: str = "f64",
+        precision: str | None = None,
     ):
         """Complete AL analysis over a field-space grid: returns six
         (N_x0, N_x1) maps — consistency, ε_V, ε_H, η_∥, δ, ω — exactly the
@@ -368,21 +463,30 @@ class GeneralisedAL(InflationCondition):
         notes).  ``threads`` is accepted for compatibility and ignored.
 
         ``output``:
-          * ``"f64"`` — numpy float64 arrays (the reference's format);
-          * ``"f64_device"`` — float64 tensors left on the device;
-          * ``"pair"`` raises ``NotImplementedError`` (a TPU format).
+          * ``"f64"`` — numpy arrays (the reference's format; float32 for
+            ``precision="f32"``, as the JAX package's ``engine="pallas"``);
+          * ``"f64_device"`` — tensors left on the device;
+          * ``"pair"`` — per quantity a ``(hi, lo)`` pair of float32 tensors
+            on the device, ``hi = f32(v)``, ``lo = f32(v − hi)`` (what the
+            JAX package's compensated engines return off the TPU); not for
+            ``precision="f32"``.
 
         ``engine``:
           * None (default) — ``"cuda"`` on a CUDA device, ``"torch"`` on a
             CPU device;
-          * ``"cuda"`` — kernel B1, the hand-written CUDA grid scan;
-          * ``"torch"`` — the plain PyTorch version, on any device.
+          * ``"cuda"`` — the hand-written CUDA grid scan of ``precision``
+            (kernel B1, B2 or B4);
+          * ``"torch"`` — the plain PyTorch version at the same precision,
+            on any device.
 
-        ``dtype``: None or float64 (the f32 kernel is ROADMAP B2).
+        ``precision``: None or ``"f64"``, ``"f32"``, ``"dd"`` (see the
+        module's docstring).  ``dtype``: None, float64, or float32 (the JAX
+        package's spelling of ``precision="f32"``); a ``dtype`` that
+        contradicts ``precision`` raises.
         """
         return self._grid_scan(
             "complete_analysis", args, (x0_start, x0_stop, x1_start, x1_stop),
-            (N_x0, N_x1), progress, threads, dtype, engine, output,
+            (N_x0, N_x1), progress, threads, dtype, engine, output, precision,
         )
 
     def consistency(
@@ -399,12 +503,13 @@ class GeneralisedAL(InflationCondition):
         dtype=None,
         engine: str | None = None,
         output: str = "f64",
+        precision: str | None = None,
     ):
         """Generalised consistency condition ||lhs|−|rhs||/(|lhs|+|rhs|) with
         lhs = V_ww/V − 3 (consistency_conditions.py:310-365)."""
         return self._grid_scan(
             "consistency", args, (x0_start, x0_stop, x1_start, x1_stop),
-            (N_x0, N_x1), progress, threads, dtype, engine, output,
+            (N_x0, N_x1), progress, threads, dtype, engine, output, precision,
         )
 
     def epsilon_v(
@@ -421,11 +526,12 @@ class GeneralisedAL(InflationCondition):
         dtype=None,
         engine: str | None = None,
         output: str = "f64",
+        precision: str | None = None,
     ):
         """ε_V = ½(∇V/V)² (consistency_conditions.py:367-418)."""
         return self._grid_scan(
             "epsilon_v", args, (x0_start, x0_stop, x1_start, x1_stop),
-            (N_x0, N_x1), progress, threads, dtype, engine, output,
+            (N_x0, N_x1), progress, threads, dtype, engine, output, precision,
         )
 
     def consistency_rapidturn(
@@ -442,26 +548,61 @@ class GeneralisedAL(InflationCondition):
         dtype=None,
         engine: str | None = None,
         output: str = "f64",
+        precision: str | None = None,
     ):
         """Original AL rapid-turn condition
         (consistency_conditions.py:420-475)."""
         return self._grid_scan(
             "consistency_rapidturn", args,
             (x0_start, x0_stop, x1_start, x1_stop), (N_x0, N_x1),
-            progress, threads, dtype, engine, output,
+            progress, threads, dtype, engine, output, precision,
         )
+
+    def flag_quantum_dif(
+        self,
+        args,
+        x0_start: float,
+        x0_stop: float,
+        x1_start: float,
+        x1_stop: float,
+        N_x0: int = 10_000,
+        N_x1: int = 10_000,
+        progress: bool = True,
+        accuracy: float = 1e-3,
+        dtype=None,
+        engine: str | None = None,
+        precision: str | None = None,
+    ) -> np.ndarray:
+        """Boolean mask of candidate saddle points: True where every raw
+        gradient component satisfies |∂_a V| ≤ accuracy (the documented
+        behaviour of consistency_conditions.py:477-523, as the JAX package
+        implements it).  One grid scan of the ``gradient`` kind (kernel B1,
+        B2 or B4 by ``precision``), thresholded on the device; a numpy bool
+        array comes back.  ``engine``, ``precision`` and ``dtype`` as in
+        :meth:`complete_analysis`."""
+        precision = resolve_precision(precision, dtype)
+        grads = self._scan("gradient", args, (x0_start, x0_stop, x1_start, x1_stop),
+                           (N_x0, N_x1), progress, engine, precision, output="f64_device")
+        return (grads.abs() <= accuracy).all(dim=0).cpu().numpy()
 
     # ---------------- on-trajectory variants --------------------------- #
     # (anguelova.rs:633-977: the same point ops over a user-supplied      #
     # (n, 2) trajectory array)                                            #
 
-    def _run_trajectory_scan(self, kind, args, x, progress, engine):
-        """Shared body of the four ``*_ot`` methods: kernel B5 (or its plain
-        version) at the points of ``x``; returns the (n_out, n) numpy
-        result."""
+    def _run_trajectory_scan(self, kind, args, x, progress, engine, precision):
+        """Shared body of the four ``*_ot`` methods: kernel B5a or B5b (or
+        its plain version) at the points of ``x``; returns the (n_out, n)
+        numpy result.  ``precision="f32"`` is not offered, as in the JAX
+        package (consistency_conditions.py:1111-1113)."""
         self._validate_2field()
         args = self._validate_args(args)
-        engine = resolve_engine(engine, self.device, "kernel B5")
+        precision = resolve_precision(precision)
+        if PRECISIONS[precision].point_kernel is None:
+            raise ValueError(
+                'the on-trajectory scans take precision None, "f64" or "dd" (the '
+                "JAX package offers no f32 engine on trajectories)"
+            )
+        engine = resolve_engine(engine, self.device, f"kernel {PRECISIONS[precision].point_kernel}")
         if not torch.is_tensor(x):
             x = np.asarray(x, dtype=float)
         if x.ndim != 2 or x.shape[1] != self.artifact.n_fields:
@@ -474,46 +615,48 @@ class GeneralisedAL(InflationCondition):
         scan = scan_points_cuda if engine == "cuda" else scan_points_torch
         with Progress(_SCAN_MESSAGES[kind], enabled=progress,
                       total_ops=int(x.shape[0])):
-            out = scan(self.artifact, kind[: -len("_ot")], args, x).cpu().numpy()
+            out = scan(self.artifact, kind[: -len("_ot")], args, x, precision).cpu().numpy()
         return out
 
     def complete_analysis_ot(
         self, args, x, progress: bool = True, threads: int | None = None,
-        engine: str | None = None,
+        engine: str | None = None, precision: str | None = None,
     ):
         """Complete analysis on an (n, 2) trajectory (a numpy array, or a
         float64 tensor) → list of six (n, 1) numpy arrays, consistency,
         ε_V, ε_H, η_∥, δ, ω (the reference returns ``np.split(out, 6, 1)``
         of an (n, 6) array, consistency_conditions.py:582-589).
-        ``engine`` as in :meth:`complete_analysis` (``"cuda"``: kernel
-        B5)."""
+        ``engine`` as in :meth:`complete_analysis` (``"cuda"``: kernel B5a,
+        or B5b for ``precision="dd"``); ``precision`` None, ``"f64"`` or
+        ``"dd"``."""
         del threads
-        out = self._run_trajectory_scan("complete_analysis_ot", args, x, progress, engine)
+        out = self._run_trajectory_scan("complete_analysis_ot", args, x, progress, engine,
+                                        precision)
         return [o[:, None] for o in out]
 
     def consistency_ot(
         self, args, x, progress: bool = True, threads: int | None = None,
-        engine: str | None = None,
+        engine: str | None = None, precision: str | None = None,
     ) -> np.ndarray:
         """:meth:`consistency` at the points of an (n, 2) trajectory → (n,)."""
         del threads
-        return self._run_trajectory_scan("consistency_ot", args, x, progress, engine)[0]
+        return self._run_trajectory_scan("consistency_ot", args, x, progress, engine, precision)[0]
 
     def consistency_rapidturn_ot(
         self, args, x, progress: bool = True, threads: int | None = None,
-        engine: str | None = None,
+        engine: str | None = None, precision: str | None = None,
     ) -> np.ndarray:
         """:meth:`consistency_rapidturn` at the points of an (n, 2)
         trajectory → (n,)."""
         del threads
         return self._run_trajectory_scan(
-            "consistency_rapidturn_ot", args, x, progress, engine
+            "consistency_rapidturn_ot", args, x, progress, engine, precision
         )[0]
 
     def epsilon_v_ot(
         self, args, x, progress: bool = True, threads: int | None = None,
-        engine: str | None = None,
+        engine: str | None = None, precision: str | None = None,
     ) -> np.ndarray:
         """:meth:`epsilon_v` at the points of an (n, 2) trajectory → (n,)."""
         del threads
-        return self._run_trajectory_scan("epsilon_v_ot", args, x, progress, engine)[0]
+        return self._run_trajectory_scan("epsilon_v_ot", args, x, progress, engine, precision)[0]

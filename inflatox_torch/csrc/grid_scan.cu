@@ -1,30 +1,45 @@
-// Kernel B1: the native-f64 grid scan of the Anguelova-Lazaroiu analysis,
-// and kernel B5: the same analysis at given field-space points.
+// Kernels B1, B2 and B4: the grid scan of the Anguelova-Lazaroiu analysis
+// in f64, f32 and double-double; kernels B5a and B5b: the same analysis at
+// given field-space points, in f64 and double-double.
 //
-// Replaces the TPU kernel _kernel_df/_launch_df
+// One source, built once per (model, precision): the generated header
+// (inflx_model.h) sets INFLX_PRECISION and defines the model functions in
+// that precision.  Every library has the same C interface.
+//
+// B1 replaces the TPU kernel _kernel_df/_launch_df
 // (inflatox_tpu/ops/pallas_kernels.py:388-533), which evaluates the model in
 // double-f32 pairs because Mosaic has no f64.  Hopper has IEEE f64, so the
 // (hi, lo) arithmetic, the strip-mining and tile heuristics (_auto_tile,
 // _pick_strip) and the scalar prefetch are not carried over.
 //
+// B2 replaces the fp32 kernel _kernel/_launch (pallas_kernels.py:231-285):
+// the same source in float.  Its coordinates are those of the TPU kernel,
+// x0a + i*dx0 in f32 from f32 scalars, not f64 coordinates rounded.
+//
+// B4 replaces the triple-f32 kernel _kernel_tf/_launch_tf
+// (pallas_kernels.py:1536-1615): coordinates x0a + i*dx0 in double-double
+// (exact), the model in double-double (dd.cuh), demoted to f64, then the
+// f64 tail; B4 is bound by its f64 operations (a double-double add is about
+// twenty), not by its writes.
+//
 // One thread per grid point (i, j), j fastest, so each output plane is
 // written coalesced.  Each thread derives its own coordinates, as the TPU
 // kernel does from program_id + iota: the only input read is the parameter
-// vector.  It evaluates the generated model functions (inflx_model.h), then
-// the point tail (anguelova.cuh), and writes n_out f64 planes of (n0, n1).
+// vector.  It evaluates the model functions, then the point tail
+// (anguelova.cuh), and writes n_out planes of (n0, n1).  Coordinates are
+// written with explicit round-to-nearest add and multiply, so nvcc cannot
+// contract them into an FMA: they equal the plain version's bit for bit
+// (inflatox_torch/ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
 //
-// Coordinates are x = x0a + i*dx0 with explicit round-to-nearest add and
-// multiply, so nvcc cannot contract them into an FMA: they are bit-equal to
-// the torch grid (ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
-//
-// Kernel B5 (points_scan_kernel) replaces the TPU's on-trajectory kernels
+// Kernel B5a (points_scan_kernel) replaces the TPU's on-trajectory kernels
 // _kernel_df_ot/_kernel_edf_ot/_launch_ot
 // (inflatox_tpu/ops/pallas_kernels.py:1055-1160), which split each point
 // into (hi, lo) f32 pairs padded with 1.0 into (32, 128) blocks and write
-// f32 output pairs.  Here the points are exact f64: one thread per point i
-// of a contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the same
-// model functions and tail, and writes n_out planes of (n,), coalesced.
-// Its bound is bytes: 16 bytes read and 8·n_out written per point.
+// f32 output pairs; B5b, the double-double build, replaces _kernel_tf_ot
+// (:1101).  Here the points are exact f64: one thread per point i of a
+// contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the same model
+// functions and tail, and writes n_out planes of (n,), coalesced.  B5a's
+// bound is bytes: 16 bytes read and 8·n_out written per point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,82 +47,146 @@
 #include "inflx_model.h"
 #include "anguelova.cuh"
 
+// INFLX_PRECISION: the ids of inflatox_torch.ops.cuda_kernels.PRECISIONS
+#define INFLX_F64 0
+#define INFLX_F32 1
+#define INFLX_DD 2
+
 enum {
   KIND_COMPLETE_ANALYSIS = 0,
   KIND_CONSISTENCY = 1,
   KIND_CONSISTENCY_RAPIDTURN = 2,
   KIND_EPSILON_V = 3,
+  KIND_POTENTIAL = 4,
+  KIND_HESSE = 5,
+  KIND_GRADIENT = 6,
 };
+
+// real_t: parameters, model values, the tail and the outputs;
+// coord_t: what the model functions take (coordinates and parameters)
+#if INFLX_PRECISION == INFLX_F32
+typedef float real_t;
+typedef float coord_t;
+__device__ __forceinline__ coord_t inflx_coord(double a, double d, int64_t i) {
+  return __fadd_rn((float)a, __fmul_rn((float)i, (float)d));
+}
+#elif INFLX_PRECISION == INFLX_DD
+typedef double real_t;
+typedef dd coord_t;
+__device__ __forceinline__ coord_t inflx_coord(double a, double d, int64_t i) {
+  return dd_add(dd_c(a), dd_two_prod((double)i, d));
+}
+#else
+typedef double real_t;
+typedef double coord_t;
+__device__ __forceinline__ coord_t inflx_coord(double a, double d, int64_t i) {
+  return __dadd_rn(a, __dmul_rn((double)i, d));
+}
+#endif
+
+__device__ __forceinline__ coord_t inflx_point(real_t v) {
+#if INFLX_PRECISION == INFLX_DD
+  return dd_c(v);
+#else
+  return v;
+#endif
+}
 
 static const int kThreads = 256;
 static const int64_t kMaxGridY = 65535;
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-grid_scan_kernel(const double* __restrict__ p, double* __restrict__ out,
-                 double x0a, double dx0, double x1a, double dx1,
-                 int64_t n0, int64_t n1) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n1) return;
-  const int64_t plane = n0 * n1;
-  double x[2];
-  x[1] = __dadd_rn(x1a, __dmul_rn((double)j, dx1));
-  for (int64_t i = blockIdx.y; i < n0; i += gridDim.y) {
-    x[0] = __dadd_rn(x0a, __dmul_rn((double)i, dx0));
-    double* o = out + i * n1 + j;
-    const double v = f_V(x, p);
-    if (KIND == KIND_EPSILON_V) {
-      o[0] = inflx_tail_epsilon_v(v, f_gsq(x, p));
-      continue;
-    }
-    const double v00 = f_h00(x, p);
-    const double v10 = f_h10(x, p);
-    const double v11 = f_h11(x, p);
-    if (KIND == KIND_COMPLETE_ANALYSIS) {
-      double r[6];
-      inflx_tail_complete(v, v00, v10, v11, f_gsq(x, p), r);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) o[k * plane] = r[k];
-    } else if (KIND == KIND_CONSISTENCY) {
-      o[0] = inflx_tail_consistency(v, v00, v10, v11);
-    } else {
-      o[0] = inflx_tail_consistency_rapidturn(v, v00, v10, v11);
-    }
+// One kind at one point: writes o[k * plane] for the kind's n_out planes.
+template <int KIND, typename P>
+__device__ __forceinline__ void inflx_evaluate(const coord_t* x, P p, real_t* o,
+                                               int64_t plane) {
+  if (KIND == KIND_POTENTIAL) {
+    o[0] = f_V(x, p);
+    return;
   }
-}
-
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-points_scan_kernel(const double* __restrict__ p, const double* __restrict__ pts,
-                   double* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const double x[2] = {pts[2 * i], pts[2 * i + 1]};
-  double* o = out + i;
-  const double v = f_V(x, p);
+  if (KIND == KIND_GRADIENT) {
+    real_t g[2];
+    f_grad(x, p, g);
+    o[0] = g[0];
+    o[plane] = g[1];
+    return;
+  }
+  real_t h[4];  // V_vv, V_vw, V_wv, V_ww
+  if (KIND == KIND_HESSE) {
+    f_hesse(x, p, h);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k * plane] = h[k];
+    return;
+  }
+  const real_t v = f_V(x, p);
   if (KIND == KIND_EPSILON_V) {
     o[0] = inflx_tail_epsilon_v(v, f_gsq(x, p));
     return;
   }
-  const double v00 = f_h00(x, p);
-  const double v10 = f_h10(x, p);
-  const double v11 = f_h11(x, p);
+  f_hesse(x, p, h);
   if (KIND == KIND_COMPLETE_ANALYSIS) {
-    double r[6];
-    inflx_tail_complete(v, v00, v10, v11, f_gsq(x, p), r);
+    real_t r[6];
+    inflx_tail_complete(v, h[0], h[2], h[3], f_gsq(x, p), r);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) o[k * n] = r[k];
+    for (int k = 0; k < 6; ++k) o[k * plane] = r[k];
   } else if (KIND == KIND_CONSISTENCY) {
-    o[0] = inflx_tail_consistency(v, v00, v10, v11);
+    o[0] = inflx_tail_consistency(v, h[0], h[2], h[3]);
   } else {
-    o[0] = inflx_tail_consistency_rapidturn(v, v00, v10, v11);
+    o[0] = inflx_tail_consistency_rapidturn(v, h[0], h[2], h[3]);
   }
 }
 
+// The parameters as the model functions take them: the device vector
+// itself, or (double-double) a per-thread copy with lo = 0.
+#if INFLX_PRECISION == INFLX_DD
+#define INFLX_PARAMS(p_in)                                           \
+  coord_t p[INFLX_NP + 1];                                           \
+  for (int t = 0; t < INFLX_NP; ++t) p[t] = dd_c(p_in[t]);
+#else
+#define INFLX_PARAMS(p_in) const real_t* __restrict__ p = p_in;
+#endif
+
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+grid_scan_kernel(const real_t* __restrict__ p_in, real_t* __restrict__ out,
+                 double x0a, double dx0, double x1a, double dx1,
+                 int64_t n0, int64_t n1) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n1) return;
+  INFLX_PARAMS(p_in)
+  const int64_t plane = n0 * n1;
+  coord_t x[2];
+  x[1] = inflx_coord(x1a, dx1, j);
+  for (int64_t i = blockIdx.y; i < n0; i += gridDim.y) {
+    x[0] = inflx_coord(x0a, dx0, i);
+    inflx_evaluate<KIND>(x, p, out + i * n1 + j, plane);
+  }
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+points_scan_kernel(const real_t* __restrict__ p_in, const real_t* __restrict__ pts,
+                   real_t* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  INFLX_PARAMS(p_in)
+  const coord_t x[2] = {inflx_point(pts[2 * i]), inflx_point(pts[2 * i + 1])};
+  inflx_evaluate<KIND>(x, p, out + i, n);
+}
+
+#define INFLX_ANALYSIS_CASES(LAUNCH)                                   \
+  case KIND_COMPLETE_ANALYSIS: LAUNCH(KIND_COMPLETE_ANALYSIS); break;  \
+  case KIND_CONSISTENCY: LAUNCH(KIND_CONSISTENCY); break;              \
+  case KIND_CONSISTENCY_RAPIDTURN: LAUNCH(KIND_CONSISTENCY_RAPIDTURN); break; \
+  case KIND_EPSILON_V: LAUNCH(KIND_EPSILON_V); break;
+
 extern "C" {
 
+// The precision this library was built for (INFLX_PRECISION).
+int inflx_precision() { return INFLX_PRECISION; }
+
 // Launch one scan on `stream`; returns cudaGetLastError() (0 on success).
-// p: n_params f64 on the device; out: n_out * n0 * n1 f64 on the device.
+// p: n_params real_t on the device; out: n_out * n0 * n1 real_t on the
+// device (real_t: float for f32, else double).
 int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
                     double dx0, double x1a, double dx1, int64_t n0,
                     int64_t n1, void* stream) {
@@ -116,58 +195,41 @@ int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
   const dim3 grid((unsigned)((n1 + kThreads - 1) / kThreads),
                   (unsigned)(n0 < kMaxGridY ? n0 : kMaxGridY));
   cudaStream_t s = (cudaStream_t)stream;
-  const double* pp = (const double*)p;
-  double* po = (double*)out;
+  const real_t* pp = (const real_t*)p;
+  real_t* po = (real_t*)out;
+#define INFLX_GRID(K) \
+  grid_scan_kernel<K><<<grid, block, 0, s>>>(pp, po, x0a, dx0, x1a, dx1, n0, n1)
   switch (kind) {
-    case KIND_COMPLETE_ANALYSIS:
-      grid_scan_kernel<KIND_COMPLETE_ANALYSIS><<<grid, block, 0, s>>>(
-          pp, po, x0a, dx0, x1a, dx1, n0, n1);
-      break;
-    case KIND_CONSISTENCY:
-      grid_scan_kernel<KIND_CONSISTENCY><<<grid, block, 0, s>>>(
-          pp, po, x0a, dx0, x1a, dx1, n0, n1);
-      break;
-    case KIND_CONSISTENCY_RAPIDTURN:
-      grid_scan_kernel<KIND_CONSISTENCY_RAPIDTURN><<<grid, block, 0, s>>>(
-          pp, po, x0a, dx0, x1a, dx1, n0, n1);
-      break;
-    case KIND_EPSILON_V:
-      grid_scan_kernel<KIND_EPSILON_V><<<grid, block, 0, s>>>(
-          pp, po, x0a, dx0, x1a, dx1, n0, n1);
-      break;
+    INFLX_ANALYSIS_CASES(INFLX_GRID)
+    case KIND_POTENTIAL: INFLX_GRID(KIND_POTENTIAL); break;
+    case KIND_HESSE: INFLX_GRID(KIND_HESSE); break;
+    case KIND_GRADIENT: INFLX_GRID(KIND_GRADIENT); break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef INFLX_GRID
   return (int)cudaGetLastError();
 }
 
-// Launch one point scan on `stream`; returns cudaGetLastError().
-// p: n_params f64; pts: (n, 2) f64; out: n_out * n f64, all on the device.
+// Launch one point scan (the four analysis kinds) on `stream`; returns
+// cudaGetLastError().  p: n_params real_t; pts: (n, 2) real_t; out:
+// n_out * n real_t, all on the device.
 int inflx_points_scan(int kind, const void* p, const void* pts, void* out,
                       int64_t n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const dim3 block(kThreads);
   const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
   cudaStream_t s = (cudaStream_t)stream;
-  const double* pp = (const double*)p;
-  const double* px = (const double*)pts;
-  double* po = (double*)out;
+  const real_t* pp = (const real_t*)p;
+  const real_t* px = (const real_t*)pts;
+  real_t* po = (real_t*)out;
+#define INFLX_POINTS(K) points_scan_kernel<K><<<grid, block, 0, s>>>(pp, px, po, n)
   switch (kind) {
-    case KIND_COMPLETE_ANALYSIS:
-      points_scan_kernel<KIND_COMPLETE_ANALYSIS><<<grid, block, 0, s>>>(pp, px, po, n);
-      break;
-    case KIND_CONSISTENCY:
-      points_scan_kernel<KIND_CONSISTENCY><<<grid, block, 0, s>>>(pp, px, po, n);
-      break;
-    case KIND_CONSISTENCY_RAPIDTURN:
-      points_scan_kernel<KIND_CONSISTENCY_RAPIDTURN><<<grid, block, 0, s>>>(pp, px, po, n);
-      break;
-    case KIND_EPSILON_V:
-      points_scan_kernel<KIND_EPSILON_V><<<grid, block, 0, s>>>(pp, px, po, n);
-      break;
+    INFLX_ANALYSIS_CASES(INFLX_POINTS)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef INFLX_POINTS
   return (int)cudaGetLastError();
 }
 

@@ -105,9 +105,18 @@ class SymbolRegistry:
         """Walk ``exprs`` (in order), registering unseen free symbols.
 
         The traversal order within each expression is the C99 printer's —
-        the same order the reference uses, so ``args`` indices match."""
+        the same order the reference uses, so ``args`` indices match.  An
+        expression whose free symbols are all registered already is not
+        printed: it could register nothing (printing D5's expressions took
+        seconds, and its potential alone holds every parameter)."""
+        c_print = C99CodePrinter()._print_Symbol
         for expr in exprs:
-            self._printer.doprint(sympy.sympify(expr))
+            expr = sympy.sympify(expr)
+            names = {c_print(s) for s in expr.free_symbols}
+            if all(n.startswith("cse") or n in self._coord_slots or n in self._dot_slots
+                   or n in self._param_slots for n in names):
+                continue
+            self._printer.doprint(expr)
 
     @classmethod
     def from_model(cls, model) -> "SymbolRegistry":

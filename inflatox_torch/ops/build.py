@@ -3,9 +3,10 @@
 Two libraries, each built per model from its sources in
 ``inflatox_torch/csrc`` plus one generated per-model header:
 
-* the grid-scan library (``grid_scan.cu``, ``anguelova.cuh`` and
-  :meth:`~inflatox_torch.compiler.CompiledModel.cuda_source`): kernels B1
-  and B5, 2-field models;
+* the grid-scan library (``grid_scan.cu``, ``anguelova.cuh``, ``dd.cuh``
+  and :meth:`~inflatox_torch.compiler.CompiledModel.cuda_source`), one per
+  (model, precision), 2-field models: kernels B1 and B5a in f64, B2 in f32,
+  B4 and B5b in double-double;
 * the solver library (``solver.cu``, ``solver.cuh`` and
   :meth:`~inflatox_torch.compiler.CompiledModel.cuda_solver_source`):
   kernel B6, any field count.
@@ -22,7 +23,10 @@ be fused into an FMA, so each rounds as the corresponding torch kernel does
 and the two agree to the last bit where they share a libm.  The libraries
 get there two ways:
 
-* grid scan: plain operators, built with ``-fmad=false``;
+* grid scan: plain operators, built with ``-fmad=false``, in every
+  precision; the double-double arithmetic (``dd.cuh``) writes its sums and
+  products as non-fusing intrinsics besides, and its TwoProd as
+  ``__fma_rn``, which ``-fmad=false`` leaves as it is;
 * solver: sums and products through ``csrc/inflx_math.cuh``
   (``__dadd_rn``/``__dsub_rn``/``__dmul_rn``, never fused), built with
   nvcc's default contraction, so that CUDA's ``pow`` — one call in every
@@ -36,7 +40,10 @@ by its sources, the generated header and the flags, and is built at first
 use; ptxas's report (registers, spills) is kept beside it in ``nvcc.log``.
 nvcc is found through ``CUDA_HOME`` (default ``/usr/local/cuda``) or
 ``PATH``.  A missing nvcc or a failed build raises; there is no fallback.
-Different libraries build concurrently from different threads.
+Different libraries build concurrently from different threads, so a caller
+that needs several (several models or precisions) starts them together;
+each library's build seconds are kept as ``build_seconds`` on it (about 0
+when it was found built).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
@@ -117,6 +125,8 @@ def _bind_grid_scan(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,    # cudaStream_t
     ]
     lib.inflx_points_scan.restype = ctypes.c_int
+    lib.inflx_precision.argtypes = []
+    lib.inflx_precision.restype = ctypes.c_int
 
 
 def _bind_solver(lib: ctypes.CDLL) -> None:
@@ -148,7 +158,7 @@ class _Library:
     flags: tuple  # beyond NVCC_FLAGS
 
 
-_GRID_SCAN = _Library("grid-scan", "grid_scan.cu", ("grid_scan.cu", "anguelova.cuh"),
+_GRID_SCAN = _Library("grid-scan", "grid_scan.cu", ("grid_scan.cu", "anguelova.cuh", "dd.cuh"),
                       "libinflx_grid_scan.so", _bind_grid_scan, ("-fmad=false",))
 _SOLVER = _Library("solver", "solver.cu", ("solver.cu", "solver.cuh", "inflx_math.cuh"),
                    "libinflx_solver.so", _bind_solver, ())
@@ -193,21 +203,25 @@ def _load(spec: _Library, header_src: str) -> ctypes.CDLL:
         lib = _loaded.get(key)
         if lib is None:
             out_dir = BUILD_ROOT / _digest(spec, header_src)
+            start = time.perf_counter()
             if not (out_dir / spec.lib).is_file():
                 _compile(spec, out_dir, header_src)
+            seconds = time.perf_counter() - start
             lib = ctypes.CDLL(str(out_dir / spec.lib))
             spec.bind(lib)
             lib.inflx_error_string.argtypes = [ctypes.c_int]
             lib.inflx_error_string.restype = ctypes.c_char_p
             lib.build_log = out_dir / _LOG
+            lib.build_seconds = seconds
             _loaded[key] = lib
     return lib
 
 
 def load_grid_scan(header_src: str) -> ctypes.CDLL:
-    """The grid-scan library (kernels B1 and B5) for one generated model
-    header (:meth:`CompiledModel.cuda_source`), built on first use and
-    loaded once per process (later calls are one dict lookup)."""
+    """The grid-scan library for one generated model header
+    (:meth:`CompiledModel.cuda_source`, whose precision picks kernels B1 and
+    B5a, B2, or B4 and B5b), built on first use and loaded once per process
+    (later calls are one dict lookup)."""
     return _load(_GRID_SCAN, header_src)
 
 

@@ -13,20 +13,30 @@ round-to-nearest operations) reproduces these coordinates bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .dd import DD, two_prod
 
 __all__ = ["grid_coords", "axis_coords"]
 
 
-def axis_coords(start, stop, n: int, device="cpu") -> torch.Tensor:
-    """1-D endpoint-exclusive float64 axis: start + i*(stop-start)/n."""
+def axis_coords(start, stop, n: int, device="cpu", precision: str = "f64"):
+    """1-D endpoint-exclusive axis: start + i*(stop-start)/n, in float64
+    (``"f64"``), in float32 from f32 scalars (``"f32"``), or as an exact
+    :class:`~inflatox_torch.ops.dd.DD` (``"dd"``)."""
     start, stop = float(start), float(stop)
     spacing = (stop - start) / n
+    if precision == "f32":
+        idx = torch.arange(n, dtype=torch.float32, device=device)
+        return float(np.float32(start)) + idx * float(np.float32(spacing))
     idx = torch.arange(n, dtype=torch.float64, device=device)
+    if precision == "dd":
+        return DD(start, 0.0) + DD(*two_prod(idx, spacing))
     return start + idx * spacing
 
 
-def grid_coords(start_stop, shape, device="cpu") -> tuple:
+def grid_coords(start_stop, shape, device="cpu", precision: str = "f64") -> tuple:
     """Per-field coordinate tensors for an n-D grid.
 
     Args
@@ -34,14 +44,19 @@ def grid_coords(start_stop, shape, device="cpu") -> tuple:
     start_stop: sequence of (start, stop) pairs, one per field.
     shape: number of samples per axis.
 
-    Returns ``len(shape)`` float64 tensors, each of shape ``shape`` (a
-    broadcast view of one axis, so no grid-sized memory is allocated), giving
-    the field-space coordinate of every grid point.
+    Returns ``len(shape)`` tensors (of :func:`axis_coords`'s type), each of
+    shape ``shape`` (a broadcast view of one axis, so no grid-sized memory is
+    allocated), giving the field-space coordinate of every grid point.
     """
     shape = tuple(int(n) for n in shape)
     coords = []
     for axis, ((start, stop), n) in enumerate(zip(start_stop, shape)):
         view = [1] * len(shape)
         view[axis] = n
-        coords.append(axis_coords(start, stop, n, device).reshape(view).expand(shape))
+        axis_ = axis_coords(start, stop, n, device, precision)
+        if precision == "dd":
+            coords.append(DD(axis_.hi.reshape(view).expand(shape),
+                             axis_.lo.reshape(view).expand(shape)))
+        else:
+            coords.append(axis_.reshape(view).expand(shape))
     return tuple(coords)

@@ -221,7 +221,7 @@ class InflationModel:
 
     @classmethod
     def from_dict(cls, d: dict) -> "InflationModel":
-        p = sympy.parse_expr  # srepr strings round-trip through parse_expr
+        p = _parse_srepr
         return cls(
             model_name=d["model_name"],
             coordinates=[p(c) for c in d["coordinates"]],
@@ -235,6 +235,20 @@ class InflationModel:
             gradient_square=p(d["gradient_square"]),
             hesse_cmp=[[p(h) for h in row] for row in d["hesse_cmp"]],
         )
+
+
+_SYMPY_NAMES: dict = {}
+
+
+def _parse_srepr(text: str):
+    """An expression from its ``sympy.srepr`` string, evaluated with sympy's
+    names, as ``sympy.parse_expr`` does after it has tokenised the string:
+    the same expression (numbers become sympy numbers), without the tokeniser,
+    which takes minutes for one of the EGNO or D5 bundle's strings on some
+    CPython 3.12 builds."""
+    if not _SYMPY_NAMES:
+        exec("from sympy import *", _SYMPY_NAMES)  # noqa: S102
+    return sympy.sympify(eval(text, dict(_SYMPY_NAMES)))  # noqa: S307
 
 
 # --------------------------------------------------------------------------- #

@@ -5,21 +5,27 @@ without CUDA raises instead of moving the work to the CPU.  An engine picks
 the code that runs there: ``None`` resolves to ``"cuda"`` (the entry's
 hand-written kernel) on a CUDA device and to ``"torch"`` (its plain PyTorch
 version) on a CPU device; ``"cuda"`` needs a CUDA device; ``"torch"`` runs
-on any.
+on any.  A precision picks the arithmetic: ``"f64"`` (the default),
+``"f32"`` or ``"dd"`` (double-double); the JAX package's ``dtype=float32``
+spelling of ``"f32"`` is accepted.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_engine"]
+from ..ops.cuda_kernels import PRECISIONS
+
+__all__ = ["resolve_device", "resolve_engine", "resolve_precision"]
 
 #: JAX-package engines and what takes their place in the port
 _ENGINE_MAP = (
-    '"pallas_df64" and "pallas_edf64" map to kernel B1 (engine="cuda"), '
-    '"pallas_tf64" to a double-double kernel (ROADMAP B4), "pallas" to an '
-    'f32 kernel (ROADMAP B2); "xla" has no counterpart — use engine="torch" '
-    "for the plain PyTorch version"
+    '"pallas_df64" and "pallas_edf64" map to engine="cuda" with '
+    'precision="f64" (kernel B1), "pallas_tf64" to precision="dd" (the '
+    'double-double kernel B4), "pallas" to precision="f32" (kernel B2); '
+    '"xla" has no counterpart — use engine="torch" for the plain PyTorch '
+    "version at the same precision"
 )
 
 
@@ -58,3 +64,27 @@ def resolve_engine(engine, device: torch.device, kernel: str) -> str:
     raise ValueError(
         f'unknown engine {engine!r}; expected None (auto), "cuda" or "torch"'
     )
+
+
+def resolve_precision(precision=None, dtype=None) -> str:
+    """``"f64"``, ``"f32"`` or ``"dd"`` from ``precision`` (None: from
+    ``dtype``, else ``"f64"``) and the JAX package's ``dtype``: float32
+    means ``"f32"``, float64 is ``"f64"`` or ``"dd"`` (both deliver f64
+    values); a pair that disagrees raises."""
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be None or one of {tuple(PRECISIONS)}, got {precision!r}"
+        )
+    if dtype is None:
+        return precision or "f64"
+    if dtype in (torch.float32, np.float32):
+        implied = ("f32",)
+    elif dtype in (torch.float64, np.float64):
+        implied = ("f64", "dd")
+    else:
+        raise ValueError(f"dtype must be None, float32 or float64, got {dtype!r}")
+    if precision is None:
+        return implied[0]
+    if precision not in implied:
+        raise ValueError(f"dtype={dtype!r} conflicts with precision={precision!r}")
+    return precision

@@ -237,12 +237,20 @@ def test_jax_engines_raise(models, engine):
 
 
 def test_pair_output_and_f32_raise(models):
+    """output="pair" and the f32 scan exist, but not together; a dtype that
+    contradicts the precision, or an unknown output, raises."""
     _, art, args, extent = models["doc"]
     al = GeneralisedAL(art, device="cpu", validate_basis=False)
-    with pytest.raises(NotImplementedError, match="A6"):
-        al.complete_analysis(args, *extent, 8, 8, progress=False, output="pair")
-    with pytest.raises(NotImplementedError, match="B2"):
-        al.complete_analysis(args, *extent, 8, 8, progress=False, dtype=torch.float32)
+    pairs = al.complete_analysis(args, *extent, 8, 8, progress=False, output="pair")
+    assert len(pairs) == 6 and all(hi.dtype == lo.dtype == torch.float32 for hi, lo in pairs)
+    maps = al.complete_analysis(args, *extent, 8, 8, progress=False, dtype=torch.float32)
+    assert all(m.dtype == np.float32 for m in maps)
+    with pytest.raises(ValueError, match="pair"):
+        al.complete_analysis(args, *extent, 8, 8, progress=False, output="pair",
+                             dtype=torch.float32)
+    with pytest.raises(ValueError, match="conflicts"):
+        al.complete_analysis(args, *extent, 8, 8, progress=False, dtype=np.float32,
+                             precision="dd")
     with pytest.raises(ValueError):
         al.complete_analysis(args, *extent, 8, 8, progress=False, output="f32")
     # float64 is accepted explicitly

@@ -1,4 +1,5 @@
-"""Kernels B1, B5 and B6 on the card, against their plain PyTorch versions.
+"""Kernels B1, B2, B4, B5a, B5b and B6 on the card, against their plain
+PyTorch versions.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): they
 carry the ``cuda`` marker and skip on a host without one.  This file
@@ -7,9 +8,12 @@ imports only torch and the port, so it also runs on a host without jax:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: rtol 5e-10 with identical NaN/±inf masks for the analysis maps
-(B1, B5), the repo's tolerance; rtol 1e-12 with identical NaN masks for
-the solver's rows and times (B6).  Each kernel repeats its plain version's
-operations in their order, so both are expected to agree exactly."""
+(B1, B4, B5a, B5b), the repo's tolerance; rtol 1e-5 for the f32 kernel B2;
+rtol 1e-12 with identical NaN masks for the solver's rows and times (B6).
+Each kernel repeats its plain version's operations in their order, so both
+are expected to agree exactly."""
+
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from inflatox_torch.consistency_conditions import GeneralisedAL
 from inflatox_torch.ops import cuda_kernels, cuda_solver
 from inflatox_torch.ops.cuda_kernels import (
     KINDS,
+    POINT_KINDS,
     scan_cuda,
     scan_points_cuda,
     scan_points_torch,
@@ -43,7 +48,7 @@ def assert_maps_close(got, want, rtol=5e-10):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=0, equal_nan=True)
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA and have no CPU mode")
@@ -51,7 +56,7 @@ def cuda_device():
 
 
 @pytest.fixture(scope="module")
-def doc():
+def doc(cuda_device):
     r, theta, m = sympy.symbols("r θ m")
     V = sympy.Rational(1, 2) * m**2 * (theta**2 - sympy.Rational(2, 3) / r**2)
     g = [[sympy.Rational(1, 2), 0], [0, sympy.Rational(1, 2) * r**2]]
@@ -60,7 +65,7 @@ def doc():
 
 
 @pytest.fixture(scope="module")
-def angular():
+def angular(cuda_device):
     model, args = inflatox_torch.models.angular()
     return inflatox_torch.Compiler(model, silent=True).compile(), args
 
@@ -68,10 +73,10 @@ def angular():
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_kernel_matches_plain_torch_256(doc, cuda_device, kind):
     art, args = doc
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     got = scan_cuda(art, kind, args, DOC_EXTENT, (256, 256), cuda_device)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES == before + 1
+    assert cuda_kernels.launches() == before + 1
     assert got.shape == (KINDS[kind][1], 256, 256) and got.dtype == torch.float64
     want = scan_torch(art, kind, args, DOC_EXTENT, (256, 256), cuda_device)
     assert_maps_close(got, want)
@@ -95,17 +100,17 @@ def test_kernel_rows_beyond_one_grid_dimension(doc, cuda_device):
 def test_default_engine_runs_the_kernel(doc, cuda_device):
     art, args = doc
     al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     maps = al.complete_analysis(args, *DOC_EXTENT, 128, 96, progress=False,
                                 output="f64_device")
-    assert cuda_kernels.LAUNCHES == before + 1
+    assert cuda_kernels.launches() == before + 1
     assert maps[0].device.type == "cuda" and maps[0].shape == (128, 96)
     host = al.complete_analysis(args, *DOC_EXTENT, 128, 96, progress=False)
     for m, h in zip(maps, host):
         assert np.array_equal(m.cpu().numpy(), h, equal_nan=True)
     plain = al.complete_analysis(args, *DOC_EXTENT, 128, 96, progress=False,
                                  engine="torch", output="f64_device")
-    assert cuda_kernels.LAUNCHES == before + 2
+    assert cuda_kernels.launches() == before + 2
     for m, p in zip(maps, plain):
         assert_maps_close(m, p)
 
@@ -184,16 +189,16 @@ def test_background_entry_points_run_the_kernels(doc, cuda_device):
         np.testing.assert_array_equal(survey[key], want[key])
 
 
-@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("kind", sorted(POINT_KINDS))
 def test_points_kernel_matches_plain_torch(doc, cuda_device, kind):
     art, args = doc
     rng = np.random.default_rng(5)
     x = torch.tensor(np.stack([rng.uniform(0.3, 3.0, 10_007), rng.uniform(-3.0, 3.0, 10_007)], 1),
                      device="cuda")
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     got = scan_points_cuda(art, kind, args, x)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES == before + 1
+    assert cuda_kernels.launches() == before + 1
     assert got.shape == (KINDS[kind][1], 10_007)
     assert_maps_close(got, scan_points_torch(art, kind, args, x))
     # a strided view of solver rows is made contiguous by the wrapper
@@ -206,14 +211,79 @@ def test_trajectory_scans_run_the_kernel(doc, cuda_device):
     art, args = doc
     al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
     rows = background.solve_eom(art, args, 200, [2.0, 2.0], [0.0, 0.0], solver="rkf")
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     got = al.complete_analysis_ot(args, rows[:, :2], progress=False)
     singles = [getattr(al, kind)(args, rows[:, :2], progress=False)
                for kind in ("consistency_ot", "consistency_rapidturn_ot", "epsilon_v_ot")]
-    assert cuda_kernels.LAUNCHES == before + 4
+    assert cuda_kernels.launches() == before + 4
     want = al.complete_analysis_ot(args, rows[:, :2], progress=False, engine="torch")
-    assert cuda_kernels.LAUNCHES == before + 4
+    assert cuda_kernels.launches() == before + 4
     assert len(got) == 6 and got[0].shape == (200, 1)
     for g, w in zip(got, want):
         assert_maps_close(torch.from_numpy(g), torch.from_numpy(w))
     assert all(s.shape == (200,) for s in singles)
+
+
+@pytest.mark.parametrize("precision", ["f32", "dd"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_f32_and_dd_kernels_match_plain_torch(doc, cuda_device, kind, precision):
+    art, args = doc
+    kernel = {"f32": "B2", "dd": "B4"}[precision]
+    before = cuda_kernels.LAUNCHES_BY_KERNEL[kernel]
+    got = scan_cuda(art, kind, args, DOC_EXTENT, (256, 200), cuda_device, precision)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES_BY_KERNEL[kernel] == before + 1
+    assert got.dtype == (torch.float32 if precision == "f32" else torch.float64)
+    want = scan_torch(art, kind, args, DOC_EXTENT, (256, 200), cuda_device, precision)
+    assert_maps_close(got, want, rtol=1e-5 if precision == "f32" else 5e-10)
+
+
+@pytest.mark.parametrize("kind", sorted(POINT_KINDS))
+def test_dd_points_kernel_matches_plain_torch(doc, cuda_device, kind):
+    art, args = doc
+    rng = np.random.default_rng(6)
+    x = torch.tensor(np.stack([rng.uniform(0.3, 3.0, 5003), rng.uniform(-3.0, 3.0, 5003)], 1),
+                     device="cuda")
+    before = cuda_kernels.LAUNCHES_BY_KERNEL["B5b"]
+    got = scan_points_cuda(art, kind, args, x, "dd")
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B5b"] == before + 1
+    assert_maps_close(got, scan_points_torch(art, kind, args, x, "dd"))
+
+
+def test_array_entries_run_the_kernels(doc, cuda_device):
+    art, args = doc
+    al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    v = al.calc_V_array(args, DOC_EXTENT[::2], DOC_EXTENT[1::2], [96, 80])
+    h = al.calc_H_array(args, *DOC_EXTENT, [96, 80])
+    flags = al.flag_quantum_dif(args, *DOC_EXTENT, 96, 80, progress=False, accuracy=0.3)
+    v32 = al.calc_V_array(args, DOC_EXTENT[::2], DOC_EXTENT[1::2], [96, 80], precision="f32")
+    pairs = al.complete_analysis(args, *DOC_EXTENT, 96, 80, progress=False, output="pair",
+                                 precision="dd")
+    after = cuda_kernels.LAUNCHES_BY_KERNEL
+    assert (after["B1"] - before["B1"], after["B2"] - before["B2"],
+            after["B4"] - before["B4"]) == (3, 1, 1)
+    assert v.shape == (96, 80) and h.shape == (2, 2, 96, 80) and flags.dtype == bool
+    assert v32.dtype == np.float32 and pairs[0][0].device.type == "cuda"
+    plain = al.calc_H_array(args, *DOC_EXTENT, [96, 80], engine="torch")
+    np.testing.assert_array_equal(h, plain)
+
+
+def test_egno_dd_and_d5_f64_on_the_card(cuda_device):
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    egno = inflatox_torch.CompiledModel.load(os.path.join(fixtures, "egno_bundle.json"))
+    e_args = inflatox_torch.models._args_by_symbol(
+        egno.model, {"m": 1e-3, "a": 0.5, "c": 1000.0, "alpha": 1.0})
+    extent = (0.46, 0.50, 0.0, np.pi)
+    got = scan_cuda(egno, "complete_analysis", e_args, extent, (128, 96), cuda_device, "dd")
+    assert_maps_close(got, scan_torch(egno, "complete_analysis", e_args, extent, (128, 96),
+                                      cuda_device, "dd"))
+    d5 = inflatox_torch.CompiledModel.load(os.path.join(fixtures, "d5_bundle.json"))
+    d_args = inflatox_torch.models._args_by_symbol(d5.model, {
+        "V0": -1.17e-8, "N": 1000.0, "g_s": 0.01, "l_s": 501.961, "u": 50 * 501.961,
+        "q": 1.0, "p": 5.0, "a0": 0.001, "a1": 0.0005, "b1": 0.001})
+    extent = (0.1, 36.0, 0.0, 4 * np.pi)
+    got = scan_cuda(d5, "complete_analysis", d_args, extent, (128, 96), cuda_device)
+    assert_maps_close(got, scan_torch(d5, "complete_analysis", d_args, extent, (128, 96),
+                                      cuda_device))

@@ -88,10 +88,12 @@ extern "C" void eval_points(int64_t n, const double* x0, const double* x1,
                             const double* p, double* out) {
   for (int64_t i = 0; i < n; ++i) {
     const double x[2] = {x0[i], x1[i]};
+    double h[4];
+    f_hesse(x, p, h);
     out[5 * i + 0] = f_V(x, p);
-    out[5 * i + 1] = f_h00(x, p);
-    out[5 * i + 2] = f_h10(x, p);
-    out[5 * i + 3] = f_h11(x, p);
+    out[5 * i + 1] = h[0];
+    out[5 * i + 2] = h[2];
+    out[5 * i + 3] = h[3];
     out[5 * i + 4] = f_gsq(x, p);
   }
 }
@@ -232,10 +234,18 @@ def test_scan_torch_matches_c_oracle(models, name):
         assert_maps_close(got[k], ref[k])
 
 
+#: the user-facing call of each raw-surface kind
+_ENTRIES = {
+    "potential": lambda al, args, e: al.calc_V_array(args, e[::2], e[1::2], [8, 8]),
+    "hesse": lambda al, args, e: al.calc_H_array(args, *e, [8, 8]),
+    "gradient": lambda al, args, e: al.flag_quantum_dif(args, *e, 8, 8, progress=False),
+}
+
+
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_scan_cuda_on_cpu_is_the_plain_version_and_never_launches(models, kind):
     _, art, args, extent, _ = models["doc"]
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     got = scan_cuda(art, kind, args, extent, (24, 40), "cpu")
     want = scan_torch(art, kind, args, extent, (24, 40), "cpu")
     assert got.shape == (KINDS[kind][1], 24, 40) and got.dtype == torch.float64
@@ -243,14 +253,17 @@ def test_scan_cuda_on_cpu_is_the_plain_version_and_never_launches(models, kind):
     al = inflatox_torch.consistency_conditions.GeneralisedAL(
         art, device="cpu", validate_basis=False
     )
-    getattr(al, kind)(args, *extent, 8, 8, progress=False)
-    assert cuda_kernels.LAUNCHES == before
+    if kind in _ENTRIES:
+        _ENTRIES[kind](al, args, extent)
+    else:
+        getattr(al, kind)(args, *extent, 8, 8, progress=False)
+    assert cuda_kernels.launches() == before
 
 
 def test_scan_rejects_bad_arguments(models):
     _, art, args, extent, _ = models["doc"]
     with pytest.raises(ValueError):
-        scan_cuda(art, "potential", args, extent, (8, 8), "cpu")
+        scan_cuda(art, "bogus", args, extent, (8, 8), "cpu")
     with pytest.raises(ValueError):
         scan_cuda(art, "complete_analysis", np.ones(3), extent, (8, 8), "cpu")
     with pytest.raises(ValueError):

@@ -30,7 +30,7 @@ import inflatox_tpu
 from inflatox_torch import background
 from inflatox_torch.consistency_conditions import GeneralisedAL
 from inflatox_torch.ops import cuda_kernels
-from inflatox_torch.ops.cuda_kernels import KINDS, scan_points_cuda, scan_points_torch
+from inflatox_torch.ops.cuda_kernels import KINDS, POINT_KINDS, scan_points_cuda, scan_points_torch
 from inflatox_torch.utils.errors import ShapeError
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -146,17 +146,17 @@ def test_ill_conditioned_trajectories_within_the_jax_engines_spread(cases, name)
         assert dist <= 2.0 * spread + RTOL, (k, dist, spread)
 
 
-@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("kind", sorted(POINT_KINDS))
 def test_scan_points_cuda_on_cpu_is_the_plain_version(cases, kind):
     _, art, args, pts = cases["doc"]
     x = torch.from_numpy(np.ascontiguousarray(pts))
-    before = cuda_kernels.LAUNCHES
+    before = cuda_kernels.launches()
     got = scan_points_cuda(art, kind, args, x)
     want = scan_points_torch(art, kind, args, x)
     assert got.shape == (KINDS[kind][1], len(pts)) and got.dtype == torch.float64
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     getattr(_al(art), kind + "_ot")(args, pts, progress=False)
-    assert cuda_kernels.LAUNCHES == before
+    assert cuda_kernels.launches() == before
 
 
 def test_points_match_the_grid_scan(cases):
@@ -184,7 +184,7 @@ def test_ot_accepts_a_tensor_and_rejects_bad_shapes(cases):
         al.consistency_ot(args, pts.ravel(), progress=False)
     with pytest.raises(ShapeError):
         al.epsilon_v_ot(np.ones(2), pts, progress=False)
-    with pytest.raises(ValueError, match="B5"):
+    with pytest.raises(ValueError, match="B5a"):
         al.complete_analysis_ot(args, pts, progress=False, engine="cuda")
     with pytest.raises(ValueError, match="JAX-package"):
         al.complete_analysis_ot(args, pts, progress=False, engine="xla")
