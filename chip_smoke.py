@@ -55,7 +55,30 @@ passes or ends the script with a nonzero exit:
     beside them;
 16. kernel B5b: the four on-trajectory scans at ``precision="dd"`` over
     1,048,576 points spread over the EGNO window, rtol 5e-10;
-17. timing of B2, B4, B5b and B1's new kinds against their plain versions.
+17. timing of B2, B4, B5b and B1's new kinds against their plain versions;
+18. the parameter sweep at bench cfg5's size (hyperinflation, 32 masses,
+    512²) through ``parallel.parameter_sweep`` (one launch of kernel B7a),
+    against the plain version on the card (rtol 5e-10, identical masks),
+    each set bit for bit against a single B1 scan, sets 0-3 against the
+    plain version on the CPU; then cfg5's on-device min-consistency
+    reduction against the full maps';
+19. the same sweep in f32 (kernel B7b, rtol 1e-5), EGNO's rapid-turn
+    condition over 8 values of c at 512² in double-double (kernel B7d), and
+    ``flag_quantum_dif`` over cfg5's sweep, exact;
+20. kill and resume (bench cfg5c, on the port): a worker process
+    (``chip_smoke.py --sweep-worker``) runs a checkpointed sweep with the
+    (min, argmin) reduction at 512², chunk 32, sized from the checkpointed
+    rate to last about 3 s on the card; it is SIGKILLed once 40 % of the
+    chunks exist, the sweep resumed to completion in this process, and the
+    result held exactly against an uncheckpointed sweep;
+21. timing of B7a (also against 32 chained B1 launches, through the
+    wrapper and through the C entry alone), B7b and B7d, and of
+    ``parameter_sweep`` on the host clock: with and without a reduction,
+    checkpointed or not.  (``scripts/probe_sweep_pipeline.py`` compares the
+    chunk loop's orders of copy and write.)
+
+Phase 11 takes the plain solver's time from phase 8's call instead of
+timing it twice more.
 
 Every phase requires identical NaN/±inf masks.  The last lines are the
 kernel table (JSON), the card's name and power limit, and
@@ -66,6 +89,8 @@ import ast
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -109,6 +134,13 @@ D5_ARGS = {"V0": -1.17e-8, "N": 1000.0, "g_s": 0.01, "l_s": 501.961, "u": 50 * 5
 # f64 operations of one double-double operation in csrc/dd.cuh (add: two
 # TwoSums and two quick ones; mul: FMA TwoProd; div: three quotient digits)
 DD_OPS = {"add": 20, "mul": 9, "div": 70, "sqrt": 33, "exp": 676, "log": 726, "demoted": 2}
+SWEEP_SETS, SWEEP_N = 32, 512  # bench cfg5: 32 masses × 512²
+EGNO_SWEEP_C = (900.0, 1100.0, 8)  # 8 values of c around EGNO_ARGS' 1000
+REHEARSAL_CHUNK = 32  # bench cfg5c's sweep at 512², chunk 32
+REHEARSAL_WORKER_S = 3.0  # the worker's sweep lasts at least this long on the card
+REHEARSAL_KILL_AT = 0.4  # share of the chunk files at which the worker is killed
+HERE = os.path.dirname(os.path.abspath(__file__))
+SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
 
 
 class SmokeFailure(Exception):
@@ -447,6 +479,7 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
     n_bytes = k_rows.numel() * 8 + k_times.numel() * 8 + 2 * ft.numel() * 8 + pt.numel() * 8
     n_ops = attempt_ops(art, solver) * attempts.sum().item()
     return {"launches": launches, "max_abs": absolute, "rows": k_rows, "times": k_times,
+            "plain_s": plain_s,
             "args": (pt, steps, ft, dt, max_err, solver), "bound": bound(n_bytes, n_ops),
             "attempts": attempts, "mean_attempts": mean_attempts, "n_ops": n_ops,
             "n_bytes": n_bytes}
@@ -578,6 +611,168 @@ def points_and_check(al, art, args, pts, label):
     return launches, worst
 
 
+# ------------------------------------------------------------------------- #
+# parameter sweeps                                                          #
+# ------------------------------------------------------------------------- #
+
+
+def consistency_nanmin(maps):
+    """bench cfg5's reduction: the least consistency of one set, NaN
+    skipped."""
+    import torch
+
+    c = maps[0]
+    return torch.where(torch.isnan(c), torch.inf, c).min()
+
+
+def min_and_argmin(maps):
+    """bench cfg5c's reduction (scripts/sweep_rehearsal.py:46-50) in torch:
+    the least consistency of one set and its flat index, NaN skipped."""
+    import torch
+
+    c = torch.where(torch.isnan(maps[0]), torch.inf, maps[0])
+    return torch.stack([c.min(), c.argmin().to(c.dtype)])
+
+
+def rehearsal_batch(configs):
+    import numpy as np
+
+    return np.linspace(0.5, 2.0, configs)[:, None]
+
+
+def sweep_worker(argv):
+    """``--sweep-worker DIR CONFIGS N BUNDLE DEVICE``: the checkpointed
+    rehearsal sweep at N² on DEVICE, the model loaded from the bundle the
+    parent saved."""
+    sys.path.insert(0, HERE)
+    import inflatox_torch
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.parallel import parameter_sweep
+
+    ckdir, configs, n, bundle, device = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    al = GeneralisedAL(inflatox_torch.CompiledModel.load(bundle), device=device,
+                       validate_basis=False)
+    parameter_sweep(al, rehearsal_batch(configs), DOC_EXTENT, (n, n),
+                    chunk_size=REHEARSAL_CHUNK, checkpoint_dir=ckdir, progress=False,
+                    reduce_fn=min_and_argmin)
+    return 0
+
+
+def chunk_files(ckdir):
+    try:
+        return sorted(f for f in os.listdir(ckdir) if f.startswith("chunk_") and f.endswith(".npy"))
+    except FileNotFoundError:
+        return []
+
+
+def rehearse_kill_resume(art, device, card):
+    """Phase 20: size the rehearsal, run it in a worker, SIGKILL the worker
+    mid-run, resume in this process, check.  Returns the summary dict."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    import inflatox_torch
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.parallel import parameter_sweep
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    os.makedirs(SWEEP_DIR)
+    bundle = os.path.join(SWEEP_DIR, "hyperinflation.json")
+    art.save(bundle)
+    al = GeneralisedAL(inflatox_torch.CompiledModel.load(bundle), device=device,
+                       validate_basis=False)
+    shape = (SWEEP_N, SWEEP_N)
+
+    def sweep(batch, **kw):
+        return parameter_sweep(al, batch, DOC_EXTENT, shape, chunk_size=REHEARSAL_CHUNK,
+                               progress=False, reduce_fn=min_and_argmin, **kw)
+
+    # size: the checkpointed rate over 64 chunks, then enough configs for
+    # REHEARSAL_WORKER_S seconds of the worker's sweep
+    probe = rehearsal_batch(64 * REHEARSAL_CHUNK)
+    sweep(probe[:2 * REHEARSAL_CHUNK])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sweep(probe, checkpoint_dir=os.path.join(SWEEP_DIR, "probe"))
+    per_config = (time.perf_counter() - t) / len(probe)
+    n_chunks = max(64, int(np.ceil(REHEARSAL_WORKER_S / per_config / REHEARSAL_CHUNK)))
+    configs = n_chunks * REHEARSAL_CHUNK
+    batch = rehearsal_batch(configs)
+    t = time.perf_counter()
+    reference = sweep(batch)
+    reference_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    ckdir = os.path.join(SWEEP_DIR, "checkpoint")
+    log_path = os.path.join(SWEEP_DIR, "worker.log")
+    kill_at = int(n_chunks * REHEARSAL_KILL_AT)
+    with open(log_path, "w") as log:
+        t = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sweep-worker",
+                                 ckdir, str(configs), str(SWEEP_N), bundle, str(device)],
+                                stdout=log, stderr=log)
+        try:
+            killed_at = None
+            while proc.poll() is None and time.perf_counter() - t < 600:
+                if len(chunk_files(ckdir)) >= kill_at:
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait()
+                    killed_at = len(chunk_files(ckdir))
+                    break
+                time.sleep(0.002)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    worker_s = time.perf_counter() - t
+    with open(log_path) as log:
+        tail = log.read()[-2000:]
+    check(killed_at is not None, f"sweep rehearsal: the worker ended (exit {proc.returncode}) "
+          f"before the kill, with {len(chunk_files(ckdir))} of {n_chunks} chunks: {tail}")
+    check(0.1 * n_chunks <= killed_at <= 0.9 * n_chunks,
+          f"sweep rehearsal: killed with {killed_at} of {n_chunks} chunks, outside 10-90 %")
+    temp_left = glob.glob(os.path.join(ckdir, "*.tmp.*"))
+    before = {f: os.stat(os.path.join(ckdir, f)) for f in chunk_files(ckdir)}
+
+    t = time.perf_counter()
+    resumed = sweep(batch, checkpoint_dir=ckdir)
+    resume_s = time.perf_counter() - t
+    check(resumed.shape == (configs, 2), f"sweep rehearsal: result shape {resumed.shape}")
+    check(np.array_equal(resumed, reference, equal_nan=True),
+          "sweep rehearsal: the resumed result differs from the uncheckpointed sweep")
+    check(len(chunk_files(ckdir)) == n_chunks, "sweep rehearsal: chunk files missing")
+    check(not glob.glob(os.path.join(ckdir, "*.tmp.*")), "sweep rehearsal: a temp file is left")
+    rewritten = [f for f, st in before.items()
+                 if (os.stat(os.path.join(ckdir, f)).st_ino, os.stat(os.path.join(ckdir, f)).st_mtime_ns)
+                 != (st.st_ino, st.st_mtime_ns)]
+    check(not rewritten, f"sweep rehearsal: chunks written before the kill were rewritten: "
+          f"{rewritten[:3]}")
+    try:
+        sweep(batch + 1e-3, checkpoint_dir=ckdir)
+    except ValueError as e:
+        check("refusing to resume" in str(e), f"sweep rehearsal: wrong refusal: {e}")
+    else:
+        raise SmokeFailure("sweep rehearsal: a resume with different args did not raise")
+    resumed_configs = (n_chunks - killed_at) * REHEARSAL_CHUNK
+    summary = {"configs": configs, "chunks": n_chunks, "killed_at_chunks": killed_at,
+               "temp_files_at_kill": len(temp_left), "worker_s": worker_s,
+               "reference_s": reference_s, "resume_s": resume_s,
+               "resumed_configs_per_hour": resumed_configs / resume_s * 3600,
+               "uncheckpointed_configs_per_hour": configs / reference_s * 3600}
+    print(f"sweep rehearsal (cfg5c on the port) on {card}: {configs} configs at {SWEEP_N}², "
+          f"chunk {REHEARSAL_CHUNK}, {n_chunks} chunks; worker SIGKILLed after {worker_s:.2f} s "
+          f"with {killed_at} chunks written ({len(temp_left)} temp file(s) at the kill); "
+          f"resumed {n_chunks - killed_at} chunks in {resume_s:.3f} s "
+          f"({summary['resumed_configs_per_hour']:.4e} configs/hour); the uncheckpointed sweep "
+          f"{reference_s:.3f} s ({summary['uncheckpointed_configs_per_hour']:.4e} configs/hour); "
+          "resumed result equal to it exactly, no temp file left, no chunk rewritten, a "
+          "different args refused")
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -600,7 +795,9 @@ def main() -> int:
         scan_points_torch,
         scan_torch,
     )
-    from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
+    from inflatox_torch.ops.cuda_solver import solve_cuda
+
+    t_start = time.perf_counter()
 
     # 1. environment
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -788,16 +985,15 @@ def main() -> int:
           f"median N_inflation {np.nanmedian(survey['N_inflation']):.4f}; all five outputs "
           f"equal engine='torch' on the card ({plain_survey_s:.2f} s)")
 
-    # 11. timing of B6 and B5, in turns
+    # 11. timing of B6 (the plain version's time is phase 8's one call: two
+    # more in turns took over a minute of the run) and of B5, in turns
     def solver_kernel():
         solve_cuda(art, *rkf["args"])
 
-    def solver_plain():
-        solve_torch(art, *rkf["args"])
-
     single_ms = time_ms(solver_kernel, 1, 1)
     n_solver = max(3, min(100, int(500 / single_ms)))
-    b6_ms, b6_plain_ms, windows = in_turns(solver_kernel, solver_plain, n_solver, 1, 0)
+    windows = (time_ms(solver_kernel, n_solver, 0), time_ms(solver_kernel, n_solver, 0))
+    b6_ms, b6_plain_ms = sum(windows) / 2, rkf["plain_s"] * 1e3
     b6_traced = profiled_ms(solver_kernel, "solve_kernel", 3)
     pt, steps, ft, dt, max_err, _ = rkf["args"]
     one_ms = time_ms(lambda: solve_cuda(art, pt, steps, ft[:1], dt[:1], max_err, "rkf"),
@@ -808,7 +1004,7 @@ def main() -> int:
           f"({B_SOLVE / b6_ms * 1e3:.1f} trajectories/s; windows {windows[0]:.4f}, "
           f"{windows[1]:.4f}; {n_solver} chained launches each; torch.profiler "
           f"{b6_traced}), plain torch "
-          f"{b6_plain_ms:.1f} ms (windows {windows[2]:.1f}, {windows[3]:.1f}); bound "
+          f"{b6_plain_ms:.1f} ms (phase 8's call); bound "
           f"{rkf['bound'][0]:.4f} ms ({rkf['bound'][1]}; {rkf['n_bytes']} bytes, "
           f"{rkf['n_ops']:.4e} f64 operations, {attempt_ops(art, 'rkf')} per attempt); "
           f"serial chain: trajectory 0 alone {one_ms:.4f} ms for "
@@ -818,15 +1014,13 @@ def main() -> int:
     def rk4_kernel():
         solve_cuda(art, *rk4["args"])
 
-    def rk4_plain():
-        solve_torch(art, *rk4["args"])
-
     rk4_single = time_ms(rk4_kernel, 1, 1)
     n_rk4 = max(3, min(100, int(500 / rk4_single)))
-    rk4_ms, rk4_plain_ms, windows = in_turns(rk4_kernel, rk4_plain, n_rk4, 1, 0)
+    windows = (time_ms(rk4_kernel, n_rk4, 0), time_ms(rk4_kernel, n_rk4, 0))
+    rk4_ms, rk4_plain_ms = sum(windows) / 2, rk4["plain_s"] * 1e3
     print(f"timing B6 rk4 hyperinflation {B_SOLVE}x500 on {card}: kernel {rk4_ms:.4f} ms "
           f"(windows {windows[0]:.4f}, {windows[1]:.4f}; {n_rk4} chained launches each), "
-          f"plain torch {rk4_plain_ms:.1f} ms; bound {rk4['bound'][0]:.4f} ms "
+          f"plain torch {rk4_plain_ms:.1f} ms (phase 8's call); bound {rk4['bound'][0]:.4f} ms "
           f"({rk4['bound'][1]})")
 
     def points_kernel():
@@ -1079,6 +1273,208 @@ def main() -> int:
               lambda: scan_points_torch(egno, "complete_analysis", egno_args, egno_pts, "dd"),
               n_egno * (16 + 6 * 8), dd_point_ops(egno, "complete_analysis") * n_egno)
 
+    t_phase18 = time.perf_counter()
+    print(f"phases 1-17: {t_phase18 - t_start:.1f} s")
+
+    # 18. the parameter sweep at bench cfg5's size, f64 (kernel B7a)
+    from inflatox_torch.ops import cuda_kernels
+    from inflatox_torch.ops.cuda_kernels import scan_batch_cuda, scan_batch_torch
+    from inflatox_torch.parallel import parameter_sweep
+
+    masses = np.linspace(0.5, 2.0, SWEEP_SETS)[:, None]
+    sw = (SWEEP_N, SWEEP_N)
+    label = f"sweep hyperinflation {SWEEP_SETS} masses x {SWEEP_N}² f64"
+    reset_counts()
+    t = time.perf_counter()
+    sweep = parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False)
+    sweep_s = time.perf_counter() - t
+    b7a_launches = launched("B7a", label)
+    by_kernel = {k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v}
+    check(by_kernel == {"B7a": 1}, f"{label}: launches {by_kernel}, expected one B7a launch")
+    check(sweep.shape == (SWEEP_SETS, 6, *sw) and sweep.dtype == np.float64,
+          f"{label}: result {sweep.shape} {sweep.dtype}")
+    check(np.nanmax(sweep[:, 0]) <= 1.0 and np.isfinite(sweep[:, 1]).mean() > 0.5,
+          f"{label}: consistency above 1 or too few finite ε_V")
+    got = scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device)
+    check(np.array_equal(got.cpu().numpy(), sweep, equal_nan=True),
+          f"{label}: the user-facing call differs from the kernel's own")
+    rel, b7a_max_abs, same = compare(got, scan_batch_torch(art, "complete_analysis", masses,
+                                                           DOC_EXTENT, sw, device))
+    singles_same = min(compare(got[s], scan_cuda(art, "complete_analysis", masses[s],
+                                                 DOC_EXTENT, sw, device), 0.0)[2]
+                       for s in range(SWEEP_SETS))
+    check(singles_same == 1.0, f"{label}: a set differs from its single B1 scan")
+    cpu_rel, _, cpu_same = compare(got[:4].cpu(), scan_batch_torch(
+        art, "complete_analysis", masses[:4], DOC_EXTENT, sw, "cpu"))
+    print(f"{label}: launches by kernel {by_kernel}; {sweep.nbytes} bytes of maps, "
+          f"user-facing call {sweep_s:.3f} s host clock; kernel vs plain torch on the card: "
+          f"max_rel={rel:.3e} max_abs={b7a_max_abs:.3e} bit_identical={same:.6f}; each of the "
+          f"{SWEEP_SETS} sets vs its single B1 scan: bit_identical={singles_same:.6f}; sets 0-3 "
+          f"vs plain torch on the CPU: max_rel={cpu_rel:.3e} bit_identical={cpu_same:.6f}")
+    reset_counts()
+    reduced = parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False,
+                              reduce_fn=consistency_nanmin)
+    launched("B7a", f"{label}, reduced")
+    check(reduced.shape == (SWEEP_SETS,) and np.array_equal(
+        reduced, np.nanmin(sweep[:, 0], axis=(1, 2))),
+        f"{label}: the on-device nanmin differs from the full maps'")
+    print(f"{label}, reduce_fn=nanmin of consistency (bench cfg5's form): equal to the full "
+          f"maps' reduction; min over the sweep {reduced.min():.6f}")
+    sweep_dev = got
+
+    # 19. the same sweep in f32 (B7b); EGNO in double-double (B7d);
+    # flag_quantum_dif over the sweep
+    label = f"sweep hyperinflation {SWEEP_SETS} masses x {SWEEP_N}² f32"
+    reset_counts()
+    sweep32 = parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False, precision="f32")
+    b7b_launches = launched("B7b", label)
+    got32 = scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device, "f32")
+    check(sweep32.dtype == np.float32 and np.array_equal(got32.cpu().numpy(), sweep32,
+                                                         equal_nan=True),
+          f"{label}: the user-facing call differs from the kernel's own")
+    rel, b7b_max_abs, same = compare(got32, scan_batch_torch(
+        art, "complete_analysis", masses, DOC_EXTENT, sw, device, "f32"), RTOL_F32)
+    singles_same = min(compare(got32[s], scan_cuda(art, "complete_analysis", masses[s],
+                                                   DOC_EXTENT, sw, device, "f32"), 0.0)[2]
+                       for s in range(SWEEP_SETS))
+    print(f"{label}: launches={b7b_launches}; kernel vs plain torch on the card: "
+          f"max_rel={rel:.3e} max_abs={b7b_max_abs:.3e} bit_identical={same:.6f}; each set vs "
+          f"its single B2 scan: bit_identical={singles_same:.6f}")
+    del got32, sweep32
+    c_values = np.linspace(*EGNO_SWEEP_C)
+    egno_batch = np.stack([inflatox_torch.models._args_by_symbol(egno.model, {**EGNO_ARGS, "c": c})
+                           for c in c_values])
+    label = f"sweep EGNO consistency_rapidturn {len(c_values)} values of c x {SWEEP_N}² dd"
+    reset_counts()
+    sweep_dd = parameter_sweep(egno_al, egno_batch, EGNO_EXTENT, sw, progress=False,
+                               precision="dd", kind="consistency_rapidturn")
+    b7d_launches = launched("B7d", label)
+    got_dd = scan_batch_cuda(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw, device,
+                             "dd")
+    check(np.array_equal(got_dd.cpu().numpy(), sweep_dd, equal_nan=True),
+          f"{label}: the user-facing call differs from the kernel's own")
+    rel, b7d_max_abs, same = compare(got_dd, scan_batch_torch(
+        egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw, device, "dd"))
+    singles_same = min(compare(got_dd[s], scan_cuda(egno, "consistency_rapidturn", egno_batch[s],
+                                                    EGNO_EXTENT, sw, device, "dd"), 0.0)[2]
+                       for s in range(len(c_values)))
+    check(singles_same == 1.0, f"{label}: a set differs from its single B4 scan")
+    check(nanmax(got_dd) <= 1.0, f"{label}: consistency above 1")
+    print(f"{label}: launches={b7d_launches}; kernel vs plain torch on the card: "
+          f"max_rel={rel:.3e} max_abs={b7d_max_abs:.3e} bit_identical={same:.6f}; each set vs "
+          f"its single B4 scan: bit_identical={singles_same:.6f}")
+    del got_dd
+    label = f"sweep flag_quantum_dif hyperinflation {SWEEP_SETS} masses x {SWEEP_N}²"
+    reset_counts()
+    flags = parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False,
+                            kind="flag_quantum_dif", accuracy=0.3)
+    launched("B7a", label)
+    plain_flags = (scan_batch_torch(art, "gradient", masses, DOC_EXTENT, sw, device).abs()
+                   <= 0.3).all(dim=1, keepdim=True)
+    check(flags.dtype == bool and np.array_equal(flags, plain_flags.cpu().numpy()),
+          f"{label}: the mask differs from the plain version's")
+    print(f"{label}: mask equal to the plain version's; {flags.mean():.6f} of the points "
+          "flagged (|∂V| <= 0.3)")
+    del plain_flags
+
+    # 20. kill and resume (bench cfg5c, on the port)
+    torch.cuda.empty_cache()
+    rehearse_kill_resume(art, device, card)
+
+    # 21. timing: B7a, B7b, B7d in turns with their plain versions; B7a
+    # against 32 chained B1 launches; parameter_sweep on the host clock
+    sweep_bytes = SWEEP_SETS * 6 * SWEEP_N * SWEEP_N
+    timed_row(f"grid_scan_b7a_sweep_{SWEEP_SETS}x{SWEEP_N}", grid_src, f"{pk}:536",
+              b7a_launches, b7a_max_abs,
+              lambda: scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
+              lambda: scan_batch_torch(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
+              sweep_bytes * 8, point_ops(art) * SWEEP_SETS * SWEEP_N * SWEEP_N)
+    b7a_ms = timed_rows[-1]["ms"]
+
+    def b1_chain():
+        for s in range(SWEEP_SETS):
+            scan_cuda(art, "complete_analysis", masses[s], DOC_EXTENT, sw, device)
+
+    # the same 32 launches through the library's C entry, parameters and
+    # outputs made beforehand: the card's time without the wrapper's
+    lib = load_grid_scan(art.cuda_source())
+    p_sets = torch.tensor(masses, device=device)
+    out_sets = torch.empty((SWEEP_SETS, 6, *sw), dtype=torch.float64, device=device)
+    ptrs = [(p_sets[s].data_ptr(), out_sets[s].data_ptr()) for s in range(SWEEP_SETS)]
+    geometry = (DOC_EXTENT[0], (DOC_EXTENT[1] - DOC_EXTENT[0]) / SWEEP_N, DOC_EXTENT[2],
+                (DOC_EXTENT[3] - DOC_EXTENT[2]) / SWEEP_N, SWEEP_N, SWEEP_N)
+
+    def b1_raw_chain():
+        stream = torch.cuda.current_stream().cuda_stream
+        for p_ptr, out_ptr in ptrs:
+            lib.inflx_grid_scan(0, p_ptr, out_ptr, *geometry, stream)
+
+    b1_raw_chain()
+    check(bool(((out_sets == sweep_dev) | (out_sets.isnan() & sweep_dev.isnan())).all()),
+          "cfg5: the raw B1 launches differ from B7a's sets")
+    batch_ms, chain_ms, windows = in_turns(
+        lambda: scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
+        b1_chain, N_TIMED_KERNEL, N_TIMED_KERNEL // 4, 3)
+    raw_ms = time_ms(b1_raw_chain, N_TIMED_KERNEL // 4)
+    print(f"timing cfg5 on {card}: one B7a launch {batch_ms:.4f} ms (windows {windows[0]:.4f}, "
+          f"{windows[1]:.4f}) against {SWEEP_SETS} chained B1 launches through scan_cuda "
+          f"{chain_ms:.4f} ms (windows {windows[2]:.4f}, {windows[3]:.4f}): "
+          f"{chain_ms / batch_ms:.3f}x; the {SWEEP_SETS} B1 launches through the C entry "
+          f"(no wrapper) {raw_ms:.4f} ms: {raw_ms / batch_ms:.3f}x")
+    del p_sets, out_sets, sweep_dev
+    timed_row(f"grid_scan_b7b_f32_sweep_{SWEEP_SETS}x{SWEEP_N}", grid_src, f"{pk}:621",
+              b7b_launches, b7b_max_abs,
+              lambda: scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device,
+                                      "f32"),
+              lambda: scan_batch_torch(art, "complete_analysis", masses, DOC_EXTENT, sw, device,
+                                       "f32"),
+              sweep_bytes * 4, point_ops(art) * SWEEP_SETS * SWEEP_N * SWEEP_N, F32_OPS_PER_S)
+    n_dd = len(c_values) * SWEEP_N * SWEEP_N
+    timed_row(f"grid_scan_b7d_dd_egno_sweep_{len(c_values)}x{SWEEP_N}", grid_src, f"{pk}:1689",
+              b7d_launches, b7d_max_abs,
+              lambda: scan_batch_cuda(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw,
+                                      device, "dd"),
+              lambda: scan_batch_torch(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw,
+                                       device, "dd"),
+              n_dd * 8, dd_point_ops(egno, "consistency_rapidturn") * n_dd)
+
+    def sweep_host_s(fn, clear=None, repeats=3):
+        """Median host seconds of ``fn()`` over ``repeats`` calls after one
+        warm-up, each started and ended synchronised; ``clear`` runs
+        before each call, outside the clock."""
+        times = []
+        for _ in range(repeats + 1):
+            if clear:
+                clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return sorted(times[1:])[len(times[1:]) // 2]
+
+    ckdir = os.path.join(SWEEP_DIR, "timing")
+
+    def clear():
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    full_s = sweep_host_s(lambda: parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False))
+    reduced_s = sweep_host_s(lambda: parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False,
+                                                     reduce_fn=consistency_nanmin))
+    chunk8_s = sweep_host_s(lambda: parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False,
+                                                    chunk_size=8))
+    ck8_s = sweep_host_s(lambda: parameter_sweep(al, masses, DOC_EXTENT, sw, progress=False,
+                                                 chunk_size=8, checkpoint_dir=ckdir), clear)
+    print(f"parameter_sweep on the host clock, cfg5 ({SWEEP_SETS} x {SWEEP_N}², "
+          f"{sweep_bytes * 8} bytes of maps) on {card}, median of 3: full maps {full_s:.4f} s, "
+          f"reduce_fn {reduced_s:.4f} s; chunk 8 {chunk8_s:.4f} s, chunk 8 checkpointed "
+          f"{ck8_s:.4f} s")
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    print(f"B1 at cfg1 4096² after the set axis: {b1_ms:.4f} ms against 0.3813 ms before it "
+          f"(PERF.md): {(b1_ms / 0.3813 - 1) * 100:+.2f} %; B7a at cfg5 {b7a_ms:.4f} ms")
+    print(f"phases 18-21: {time.perf_counter() - t_phase18:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     print(json.dumps({"kernels": [
         row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",
             "inflatox_tpu/ops/pallas_kernels.py:388", b1_launches, b1_max_abs, b1_ms,
@@ -1104,6 +1500,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sweep-worker"]:
+        sys.exit(sweep_worker(sys.argv[2:]))
     try:
         code = main()
     except SmokeFailure as e:

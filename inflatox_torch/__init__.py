@@ -12,6 +12,7 @@ the reference).  The public surface is the same:
 >>> rows, times = inflatox.background.solve_eom_batch(
 ...     artifact, args, steps, fields0, derivs0, return_time=True)
 >>> ot = al.complete_analysis_ot(args, rows[0, :, :2])
+>>> sweep = inflatox.parallel.parameter_sweep(al, args_batch, extent, (512, 512))
 
 Every tensor is float64 and every device is explicit: ``GeneralisedAL``
 and the solvers in ``background`` take ``device=`` and never move work to
@@ -34,6 +35,7 @@ from .version import __version__
 from . import background
 from . import consistency_conditions
 from . import models
+from . import parallel
 
 __all__ = [
     "CompilationArtifact",
@@ -44,4 +46,5 @@ __all__ = [
     "background",
     "consistency_conditions",
     "models",
+    "parallel",
 ]

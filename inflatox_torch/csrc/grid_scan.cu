@@ -31,6 +31,24 @@
 // contract them into an FMA: they equal the plain version's bit for bit
 // (inflatox_torch/ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
 //
+// Kernels B7a, B7b and B7d are B1, B2 and B4 over a batch of S parameter
+// sets (inflx_grid_scan_batch): the set is a third grid axis, and one
+// launch scans every set of a parameter sweep.  They replace the TPU's
+// batched kernels _kernel_df_batch, _kernel_f32_batch and _kernel_tf_batch
+// with their launchers (inflatox_tpu/ops/pallas_kernels.py:536-676,
+// 1689-1760), which prefetch an (S, n_scalars) row of (hi, lo) or triple
+// f32 scalars for each set; _kernel_edf_batch (:678-770, the
+// range-extended one) maps onto B7a, as B3 maps onto B1.  Set s reads
+// parameter row s of a contiguous (S, INFLX_NP) array and writes its n_out
+// planes at out + s * n_out * n0 * n1: the (S, n_out, n0, n1) layout that the
+// JAX sweep returns.  Set s is blockIdx.z, so one launch takes at most 65535
+// sets (gridDim.z's limit; the wrapper launches once per 65535), and every
+// offset is int64.  The batch adds no arithmetic: each set is bit for bit
+// the single scan of that set, and inflx_grid_scan is the batch of one.  A
+// loop over the sets in the kernel (blockIdx.z striding) made the single
+// scans of the byte-bound kinds up to a third slower (PERF.md).
+// Bound as B1, B2, B4: the writes, or B4's f64 operations.
+//
 // Kernel B5a (points_scan_kernel) replaces the TPU's on-trajectory kernels
 // _kernel_df_ot/_kernel_edf_ot/_launch_ot
 // (inflatox_tpu/ops/pallas_kernels.py:1055-1160), which split each point
@@ -94,6 +112,8 @@ __device__ __forceinline__ coord_t inflx_point(real_t v) {
 
 static const int kThreads = 256;
 static const int64_t kMaxGridY = 65535;
+// The most sets one inflx_grid_scan_batch launch takes (gridDim.z's limit).
+static const int64_t kMaxSets = 65535;
 
 // One kind at one point: writes o[k * plane] for the kind's n_out planes.
 template <int KIND, typename P>
@@ -145,15 +165,27 @@ __device__ __forceinline__ void inflx_evaluate(const coord_t* x, P p, real_t* o,
 #define INFLX_PARAMS(p_in) const real_t* __restrict__ p = p_in;
 #endif
 
+// Output planes of each kind (KINDS in inflatox_torch/ops/cuda_kernels.py).
+__host__ __device__ constexpr int inflx_n_out(int kind) {
+  return kind == KIND_COMPLETE_ANALYSIS ? 6
+       : kind == KIND_HESSE             ? 4
+       : kind == KIND_GRADIENT          ? 2
+                                        : 1;
+}
+
+// set_stride: n_out * n0 * n1, the distance between two sets' outputs.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-grid_scan_kernel(const real_t* __restrict__ p_in, real_t* __restrict__ out,
+grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
                  double x0a, double dx0, double x1a, double dx1,
-                 int64_t n0, int64_t n1) {
+                 int64_t n0, int64_t n1, int64_t set_stride) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n1) return;
-  INFLX_PARAMS(p_in)
   const int64_t plane = n0 * n1;
+  const unsigned s = blockIdx.z;  // the parameter set
+  const real_t* p_in = p_sets + (size_t)s * INFLX_NP;
+  INFLX_PARAMS(p_in)
+  out += s * set_stride;
   coord_t x[2];
   x[1] = inflx_coord(x1a, dx1, j);
   for (int64_t i = blockIdx.y; i < n0; i += gridDim.y) {
@@ -184,21 +216,27 @@ extern "C" {
 // The precision this library was built for (INFLX_PRECISION).
 int inflx_precision() { return INFLX_PRECISION; }
 
-// Launch one scan on `stream`; returns cudaGetLastError() (0 on success).
-// p: n_params real_t on the device; out: n_out * n0 * n1 real_t on the
-// device (real_t: float for f32, else double).
-int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
-                    double dx0, double x1a, double dx1, int64_t n0,
-                    int64_t n1, void* stream) {
-  if (n0 <= 0 || n1 <= 0) return (int)cudaErrorInvalidValue;
+// The most sets one inflx_grid_scan_batch call takes.
+int64_t inflx_max_sets() { return kMaxSets; }
+
+// Launch one scan of each of n_sets (1 .. inflx_max_sets()) parameter sets
+// on `stream`; returns cudaGetLastError() (0 on success).  p: (n_sets,
+// n_params) real_t on the device (null when n_params is 0); out: (n_sets,
+// n_out, n0, n1) real_t on the device (real_t: float for f32, else double).
+int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
+                          double dx0, double x1a, double dx1, int64_t n0,
+                          int64_t n1, int64_t n_sets, void* stream) {
+  if (n0 <= 0 || n1 <= 0 || n_sets <= 0 || n_sets > kMaxSets)
+    return (int)cudaErrorInvalidValue;
   const dim3 block(kThreads);
   const dim3 grid((unsigned)((n1 + kThreads - 1) / kThreads),
-                  (unsigned)(n0 < kMaxGridY ? n0 : kMaxGridY));
+                  (unsigned)(n0 < kMaxGridY ? n0 : kMaxGridY), (unsigned)n_sets);
   cudaStream_t s = (cudaStream_t)stream;
   const real_t* pp = (const real_t*)p;
   real_t* po = (real_t*)out;
-#define INFLX_GRID(K) \
-  grid_scan_kernel<K><<<grid, block, 0, s>>>(pp, po, x0a, dx0, x1a, dx1, n0, n1)
+#define INFLX_GRID(K)                                                     \
+  grid_scan_kernel<K><<<grid, block, 0, s>>>(pp, po, x0a, dx0, x1a, dx1, \
+                                             n0, n1, inflx_n_out(K) * n0 * n1)
   switch (kind) {
     INFLX_ANALYSIS_CASES(INFLX_GRID)
     case KIND_POTENTIAL: INFLX_GRID(KIND_POTENTIAL); break;
@@ -209,6 +247,15 @@ int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
   }
 #undef INFLX_GRID
   return (int)cudaGetLastError();
+}
+
+// Launch one scan on `stream` (the batch of one); p: n_params real_t on the
+// device; out: n_out * n0 * n1 real_t on the device.
+int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
+                    double dx0, double x1a, double dx1, int64_t n0,
+                    int64_t n1, void* stream) {
+  return inflx_grid_scan_batch(kind, p, out, x0a, dx0, x1a, dx1, n0, n1, 1,
+                               stream);
 }
 
 // Launch one point scan (the four analysis kinds) on `stream`; returns

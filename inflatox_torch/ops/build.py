@@ -5,8 +5,8 @@ Two libraries, each built per model from its sources in
 
 * the grid-scan library (``grid_scan.cu``, ``anguelova.cuh``, ``dd.cuh``
   and :meth:`~inflatox_torch.compiler.CompiledModel.cuda_source`), one per
-  (model, precision), 2-field models: kernels B1 and B5a in f64, B2 in f32,
-  B4 and B5b in double-double;
+  (model, precision), 2-field models: kernels B1, B7a and B5a in f64, B2
+  and B7b in f32, B4, B7d and B5b in double-double;
 * the solver library (``solver.cu``, ``solver.cuh`` and
   :meth:`~inflatox_torch.compiler.CompiledModel.cuda_solver_source`):
   kernel B6, any field count.
@@ -116,6 +116,22 @@ def _bind_grid_scan(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,    # cudaStream_t
     ]
     lib.inflx_grid_scan.restype = ctypes.c_int
+    lib.inflx_grid_scan_batch.argtypes = [
+        ctypes.c_int,       # kind
+        ctypes.c_void_p,    # params, (S, n_params) (device)
+        ctypes.c_void_p,    # out, (S, n_out, n0, n1) (device)
+        ctypes.c_double,    # x0a
+        ctypes.c_double,    # dx0
+        ctypes.c_double,    # x1a
+        ctypes.c_double,    # dx1
+        ctypes.c_int64,     # n0
+        ctypes.c_int64,     # n1
+        ctypes.c_int64,     # S
+        ctypes.c_void_p,    # cudaStream_t
+    ]
+    lib.inflx_grid_scan_batch.restype = ctypes.c_int
+    lib.inflx_max_sets.argtypes = []
+    lib.inflx_max_sets.restype = ctypes.c_int64
     lib.inflx_points_scan.argtypes = [
         ctypes.c_int,       # kind
         ctypes.c_void_p,    # params (device)

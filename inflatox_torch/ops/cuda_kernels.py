@@ -17,6 +17,13 @@ once per (model, precision).
 * **B4** (``"dd"``) replaces the triple-f32 kernel ``_kernel_tf``/``_launch_tf``
   (``:1536, 1577``): the model in double-double (``csrc/dd.cuh``), demoted
   to f64, then the f64 tail.
+* **B7a**, **B7b** and **B7d** (``inflx_grid_scan_batch``) are B1, B2 and B4
+  over a batch of S parameter sets in one launch, the set on a third grid
+  axis: they replace the batched TPU kernels ``_kernel_df_batch``,
+  ``_kernel_f32_batch`` and ``_kernel_tf_batch`` with their launchers
+  (``:536-676, 1689-1760``), which ``parameter_sweep`` launches;
+  ``_kernel_edf_batch`` (``:678``) maps onto B7a, as B3 onto B1.  The
+  output is (S, n_out, N0, N1), each set bit for bit its single scan.
 * **B5a** and **B5b** (``inflx_points_scan``, ``"f64"`` and ``"dd"``) replace
   ``_kernel_df_ot``/``_kernel_edf_ot`` and ``_kernel_tf_ot`` with
   ``_launch_ot`` (``:1055-1160``): the four analysis kinds at the points of
@@ -40,12 +47,14 @@ later PRs.
 
 Beside the kernels:
 
-* :func:`scan_cuda`, :func:`scan_points_cuda` — the wrappers: on a CUDA
+* :func:`scan_cuda`, :func:`scan_batch_cuda`, :func:`scan_points_cuda` —
+  the wrappers: on a CUDA
   device they launch the kernel on the current stream (no synchronisation)
   and count the launch in :data:`LAUNCHES_BY_KERNEL` (:func:`launches`
   sums it);
   on a CPU device they run the plain version.
-* :func:`scan_torch`, :func:`scan_points_torch` — the plain PyTorch
+* :func:`scan_torch`, :func:`scan_batch_torch`, :func:`scan_points_torch` —
+  the plain PyTorch
   versions (the lowered torch functions, or their double-double compilation
   :meth:`CompiledModel.dd_fns`, and :mod:`inflatox_torch.ops.anguelova`),
   used by the CPU path, by ``engine="torch"`` and by the tests.
@@ -69,8 +78,8 @@ from .dd import DD, to_f64
 from .grid import grid_coords
 
 __all__ = ["KINDS", "LAUNCHES_BY_KERNEL", "POINT_KINDS", "PRECISIONS", "Precision",
-           "evaluate_points", "launches", "scan_cuda", "scan_points_cuda",
-           "scan_points_torch", "scan_torch"]
+           "evaluate_points", "launches", "scan_batch_cuda", "scan_batch_torch",
+           "scan_cuda", "scan_points_cuda", "scan_points_torch", "scan_torch"]
 
 #: scan kind → (kernel KIND id in csrc/grid_scan.cu, number of output planes)
 KINDS = {
@@ -94,24 +103,28 @@ class Precision(NamedTuple):
     id: int
     grid_kernel: str
     point_kernel: str | None
+    batch_kernel: str
 
 
 #: the port's precisions: f64, f32 (no point kernel) and double-double
-PRECISIONS = {"f64": Precision(0, "B1", "B5a"), "f32": Precision(1, "B2", None),
-              "dd": Precision(2, "B4", "B5b")}
+PRECISIONS = {"f64": Precision(0, "B1", "B5a", "B7a"), "f32": Precision(1, "B2", None, "B7b"),
+              "dd": Precision(2, "B4", "B5b", "B7d")}
 
-#: kernel launches made by :func:`scan_cuda` and :func:`scan_points_cuda` in
-#: this process, by kernel
-LAUNCHES_BY_KERNEL = {"B1": 0, "B2": 0, "B4": 0, "B5a": 0, "B5b": 0}
+#: kernel launches made by :func:`scan_cuda`, :func:`scan_batch_cuda` and
+#: :func:`scan_points_cuda` in this process, by kernel
+LAUNCHES_BY_KERNEL = {"B1": 0, "B2": 0, "B4": 0, "B5a": 0, "B5b": 0, "B7a": 0, "B7b": 0,
+                      "B7d": 0}
 
 
 def launches() -> int:
-    """Kernel launches made by :func:`scan_cuda` and
-    :func:`scan_points_cuda` in this process, all kernels together."""
+    """Kernel launches made by :func:`scan_cuda`, :func:`scan_batch_cuda`
+    and :func:`scan_points_cuda` in this process, all kernels together."""
     return sum(LAUNCHES_BY_KERNEL.values())
 
 
-def _check_model(artifact, kind, args, precision, kinds=KINDS):
+def _check_model(artifact, kind, args, precision, kinds=KINDS, batch=False):
+    """``args`` as float64 numpy: (n_parameters,), or (S, n_parameters)
+    with S ≥ 1 for a ``batch``."""
     if kind not in kinds:
         raise ValueError(f"unknown scan kind {kind!r}; expected one of {sorted(kinds)}")
     if precision not in PRECISIONS:
@@ -123,15 +136,18 @@ def _check_model(artifact, kind, args, precision, kinds=KINDS):
             raise TypeError(f"args must be float64, got {args.dtype}")
         args = args.detach().cpu().numpy()
     args = np.asarray(args, dtype=np.float64)
-    if args.shape != (artifact.n_parameters,):
-        raise ValueError(
-            f"args must have shape ({artifact.n_parameters},), got {args.shape}"
-        )
+    k = artifact.n_parameters
+    if batch:
+        if args.ndim != 2 or args.shape[1] != k or args.shape[0] == 0:
+            raise ValueError(f"args_batch must have shape (S, {k}) with S >= 1, "
+                             f"got {args.shape}")
+    elif args.shape != (k,):
+        raise ValueError(f"args must have shape ({k},), got {args.shape}")
     return args
 
 
-def _check(artifact, kind, args, extent, shape, precision):
-    args = _check_model(artifact, kind, args, precision)
+def _check(artifact, kind, args, extent, shape, precision, batch=False):
+    args = _check_model(artifact, kind, args, precision, batch=batch)
     extent = tuple(float(v) for v in extent)
     if len(extent) != 4 or not all(math.isfinite(v) for v in extent):
         raise ValueError(f"extent must be 4 finite numbers, got {extent}")
@@ -169,13 +185,20 @@ def evaluate_points(artifact, kind, args, xs, precision: str = "f64") -> torch.T
     :class:`~inflatox_torch.ops.dd.DD` for ``"dd"``), in plain PyTorch on
     their device: the model functions in that precision and the point tail
     (f32 for ``"f32"``, else f64 on the demoted model values).  Returns an
-    (n_out, *shape) tensor."""
+    (n_out, *shape) tensor; for an (S, k) ``args`` (a batch of parameter
+    sets) an (S, n_out, *shape) tensor, each parameter a (S, 1, ..., 1)
+    tensor that broadcasts against the coordinates, so each set is computed
+    as alone."""
     first = xs[0].hi if precision == "dd" else xs[0]
     second = xs[1].hi if precision == "dd" else xs[1]
     shape = torch.broadcast_shapes(first.shape, second.shape)
     device = first.device
     dtype = torch.float32 if precision == "f32" else torch.float64
-    p = _params(np.asarray(args, dtype=np.float64), device, precision)
+    args = np.asarray(args, dtype=np.float64)
+    p = _params(args.T, device, precision)
+    if args.ndim == 2:
+        p = p.reshape(args.shape[1], args.shape[0], *(1,) * len(shape))
+        shape = (args.shape[0], *shape)
     potential, grad_square, grad, hesse = _model_values(artifact, precision)
 
     def grid(val):
@@ -205,7 +228,7 @@ def evaluate_points(artifact, kind, args, xs, precision: str = "f64") -> torch.T
                 outs = (consistency_only_op(v, v00, v10, v11),)
             else:
                 outs = (consistency_rapidturn_only_op(v, v00, v10, v11),)
-    return torch.stack(outs)
+    return torch.stack(outs, dim=args.ndim - 1)
 
 
 def scan_torch(artifact, kind, args, extent, shape, device, precision: str = "f64") -> torch.Tensor:
@@ -220,6 +243,19 @@ def scan_torch(artifact, kind, args, extent, shape, device, precision: str = "f6
     return evaluate_points(artifact, kind, args, xs, precision)
 
 
+def scan_batch_torch(artifact, kind, args_batch, extent, shape, device,
+                     precision: str = "f64") -> torch.Tensor:
+    """Plain PyTorch version of kernels B7a, B7b and B7d: :func:`scan_torch`
+    for each row of the (S, k) ``args_batch`` at once, on ``device``.
+    Returns an (S, n_out, N0, N1) tensor."""
+    args_batch, extent, shape = _check(artifact, kind, args_batch, extent, shape, precision,
+                                       batch=True)
+    device = torch.device(device)
+    xs = grid_coords(((extent[0], extent[1]), (extent[2], extent[3])), shape, device,
+                     precision)
+    return evaluate_points(artifact, kind, args_batch, xs, precision)
+
+
 def _library(artifact, precision):
     from .build import load_grid_scan  # noqa: PLC0415
 
@@ -227,6 +263,43 @@ def _library(artifact, precision):
     if lib.inflx_precision() != PRECISIONS[precision].id:
         raise RuntimeError(f"the grid-scan library was not built for precision {precision!r}")
     return lib
+
+
+def _launch_grid(artifact, kind, args_batch, extent, shape, device, precision, kernel):
+    """Build (first use) and launch the grid-scan kernel for the rows of the
+    (S, k) ``args_batch`` on the current stream of the CUDA ``device``, once
+    per ``inflx_max_sets()`` sets, counting each launch under ``kernel``;
+    returns the (S, n_out, N0, N1) output.  A launch error raises."""
+    lib = _library(artifact, precision)
+    kind_id, n_out = KINDS[kind]
+    x0a, x0b, x1a, x1b = extent
+    n0, n1 = shape
+    n_sets = args_batch.shape[0]
+    dtype = torch.float32 if precision == "f32" else torch.float64
+    max_sets = lib.inflx_max_sets()
+    with torch.cuda.device(device):
+        p = _params(args_batch, device, precision)
+        out = torch.empty((n_sets, n_out, n0, n1), dtype=dtype, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for lo in range(0, n_sets, max_sets):
+            err = lib.inflx_grid_scan_batch(
+                kind_id, p[lo].data_ptr() if p.numel() else None, out[lo].data_ptr(),
+                x0a, (x0b - x0a) / n0, x1a, (x1b - x1a) / n1, n0, n1,
+                min(max_sets, n_sets - lo), stream,
+            )
+            if err != 0:
+                msg = lib.inflx_error_string(err).decode()
+                raise RuntimeError(f"grid-scan kernel {kernel} launch failed: CUDA error "
+                                   f"{err} ({msg})")
+            LAUNCHES_BY_KERNEL[kernel] += 1
+    return out
+
+
+def _wrapper_device(device, wrapper):
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{wrapper} runs on a CUDA or CPU device, got {device}")
+    return device
 
 
 def scan_cuda(artifact, kind, args, extent, shape, device, precision: str = "f64") -> torch.Tensor:
@@ -237,33 +310,38 @@ def scan_cuda(artifact, kind, args, extent, shape, device, precision: str = "f64
     On a CUDA device it builds the kernel for the model and precision
     (first use), makes the parameter tensor, allocates one (n_out, N0, N1)
     output (float32 for ``"f32"``, else float64) with ``torch.empty`` and
-    launches on the current stream without synchronising; a launch error
-    raises.  On a CPU device it returns :func:`scan_torch`'s result and
-    launches nothing."""
+    launches on the current stream without synchronising (the batched
+    kernel's launch for one set); a launch error raises.  On a CPU device it
+    returns :func:`scan_torch`'s result and launches nothing."""
     args, extent, shape = _check(artifact, kind, args, extent, shape, precision)
-    device = torch.device(device)
+    device = _wrapper_device(device, "scan_cuda")
     if device.type == "cpu":
         return scan_torch(artifact, kind, args, extent, shape, device, precision)
-    if device.type != "cuda":
-        raise ValueError(f"scan_cuda runs on a CUDA or CPU device, got {device}")
-    lib = _library(artifact, precision)
-    kind_id, n_out = KINDS[kind]
-    x0a, x0b, x1a, x1b = extent
-    n0, n1 = shape
-    dtype = torch.float32 if precision == "f32" else torch.float64
-    with torch.cuda.device(device):
-        p = _params(args, device, precision)
-        out = torch.empty((n_out, n0, n1), dtype=dtype, device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.inflx_grid_scan(
-            kind_id, p.data_ptr() if p.numel() else None, out.data_ptr(),
-            x0a, (x0b - x0a) / n0, x1a, (x1b - x1a) / n1, n0, n1, stream,
-        )
-    if err != 0:
-        msg = lib.inflx_error_string(err).decode()
-        raise RuntimeError(f"grid-scan kernel launch failed: CUDA error {err} ({msg})")
-    LAUNCHES_BY_KERNEL[PRECISIONS[precision].grid_kernel] += 1
-    return out
+    return _launch_grid(artifact, kind, args[None], extent, shape, device, precision,
+                        PRECISIONS[precision].grid_kernel)[0]
+
+
+def scan_batch_cuda(artifact, kind, args_batch, extent, shape, device,
+                    precision: str = "f64") -> torch.Tensor:
+    """The wrapper of kernels B7a (``precision="f64"``), B7b (``"f32"``)
+    and B7d (``"dd"``): one scan kind over the endpoint-exclusive grid
+    ``extent = (x0a, x0b, x1a, x1b)`` of ``shape = (N0, N1)`` points for each
+    row of the (S, k) ``args_batch``, in one launch.
+
+    On a CUDA device it builds the kernel for the model and precision
+    (first use), copies the parameter sets to the device, allocates one
+    (S, n_out, N0, N1) output (float32 for ``"f32"``, else float64) with
+    ``torch.empty`` and launches on the current stream without
+    synchronising, once per 65535 sets (a launch takes at most that many);
+    a launch error raises.  On a CPU device it returns
+    :func:`scan_batch_torch`'s result and launches nothing."""
+    args_batch, extent, shape = _check(artifact, kind, args_batch, extent, shape, precision,
+                                       batch=True)
+    device = _wrapper_device(device, "scan_batch_cuda")
+    if device.type == "cpu":
+        return scan_batch_torch(artifact, kind, args_batch, extent, shape, device, precision)
+    return _launch_grid(artifact, kind, args_batch, extent, shape, device, precision,
+                        PRECISIONS[precision].batch_kernel)
 
 
 def _check_points(artifact, kind, args, x, precision):

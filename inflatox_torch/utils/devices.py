@@ -22,10 +22,10 @@ __all__ = ["resolve_device", "resolve_engine", "resolve_precision"]
 #: JAX-package engines and what takes their place in the port
 _ENGINE_MAP = (
     '"pallas_df64" and "pallas_edf64" map to engine="cuda" with '
-    'precision="f64" (kernel B1), "pallas_tf64" to precision="dd" (the '
-    'double-double kernel B4), "pallas" to precision="f32" (kernel B2); '
-    '"xla" has no counterpart — use engine="torch" for the plain PyTorch '
-    "version at the same precision"
+    'precision="f64" (kernel B1; B7a in a parameter sweep), "pallas_tf64" to '
+    'precision="dd" (the double-double kernel B4; B7d), "pallas" to '
+    'precision="f32" (kernel B2; B7b); "xla" has no counterpart — use '
+    'engine="torch" for the plain PyTorch version at the same precision'
 )
 
 

@@ -1,5 +1,5 @@
-"""Kernels B1, B2, B4, B5a, B5b and B6 on the card, against their plain
-PyTorch versions.
+"""Kernels B1, B2, B4, B5a, B5b, B6 and the batched B7a, B7b, B7d on the
+card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): they
 carry the ``cuda`` marker and skip on a host without one.  This file
@@ -11,7 +11,8 @@ Tolerance: rtol 5e-10 with identical NaN/±inf masks for the analysis maps
 (B1, B4, B5a, B5b), the repo's tolerance; rtol 1e-5 for the f32 kernel B2;
 rtol 1e-12 with identical NaN masks for the solver's rows and times (B6).
 Each kernel repeats its plain version's operations in their order, so both
-are expected to agree exactly."""
+are expected to agree exactly; the batched kernels B7a, B7b and B7d are held
+to that: bit for bit their plain version, and each set its single scan."""
 
 import os
 
@@ -27,12 +28,16 @@ from inflatox_torch.ops import cuda_kernels, cuda_solver
 from inflatox_torch.ops.cuda_kernels import (
     KINDS,
     POINT_KINDS,
+    PRECISIONS,
+    scan_batch_cuda,
+    scan_batch_torch,
     scan_cuda,
     scan_points_cuda,
     scan_points_torch,
     scan_torch,
 )
 from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
+from inflatox_torch.parallel import parameter_sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -287,3 +292,89 @@ def test_egno_dd_and_d5_f64_on_the_card(cuda_device):
     got = scan_cuda(d5, "complete_analysis", d_args, extent, (128, 96), cuda_device)
     assert_maps_close(got, scan_torch(d5, "complete_analysis", d_args, extent, (128, 96),
                                       cuda_device))
+
+
+def assert_bits_equal(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.array_equal(got.cpu().numpy(), want.cpu().numpy(), equal_nan=True)
+
+
+@pytest.mark.parametrize("precision", sorted(PRECISIONS))
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_batch_kernels_match_plain_torch_and_single_scans(doc, cuda_device, kind, precision):
+    art, _ = doc
+    batch = np.linspace(0.5, 2.0, 5)[:, None]
+    kernel = PRECISIONS[precision].batch_kernel
+    before = cuda_kernels.LAUNCHES_BY_KERNEL[kernel]
+    got = scan_batch_cuda(art, kind, batch, DOC_EXTENT, (96, 200), cuda_device, precision)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES_BY_KERNEL[kernel] == before + 1
+    assert got.shape == (5, KINDS[kind][1], 96, 200)
+    assert_bits_equal(got, scan_batch_torch(art, kind, batch, DOC_EXTENT, (96, 200),
+                                            cuda_device, precision))
+    for s in range(5):
+        assert_bits_equal(got[s], scan_cuda(art, kind, batch[s], DOC_EXTENT, (96, 200),
+                                            cuda_device, precision))
+
+
+def test_batch_kernel_sets_beyond_one_grid_dimension(doc, cuda_device):
+    """More sets than the 65535 blocks of gridDim.z: sets are strided in-kernel."""
+    art, _ = doc
+    batch = np.linspace(0.5, 2.0, 70_001)[:, None]
+    got = scan_batch_cuda(art, "complete_analysis", batch, DOC_EXTENT, (2, 3), cuda_device)
+    assert_bits_equal(got, scan_batch_torch(art, "complete_analysis", batch, DOC_EXTENT,
+                                            (2, 3), cuda_device))
+    last = scan_cuda(art, "complete_analysis", batch[-1], DOC_EXTENT, (2, 3), cuda_device)
+    assert_bits_equal(got[-1], last)
+
+
+def test_batch_kernel_model_without_parameters(cuda_device):
+    x, y = sympy.symbols("x y")
+    model = inflatox_torch.InflationModelBuilder.new(
+        [x, y], [[1, 0], [0, 1]], (x**2 + 2 * y**2 + 1) / 3, silent=True).build()
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    for precision in sorted(PRECISIONS):
+        got = scan_batch_cuda(art, "complete_analysis", np.zeros((4, 0)), DOC_EXTENT, (64, 48),
+                              cuda_device, precision)
+        single = scan_cuda(art, "complete_analysis", [], DOC_EXTENT, (64, 48), cuda_device,
+                           precision)
+        for s in range(4):
+            assert_bits_equal(got[s], single)
+
+
+def test_sweep_runs_the_batch_kernels_and_checkpoints_in_order(doc, cuda_device, tmp_path):
+    art, _ = doc
+    al = GeneralisedAL(art, device=cuda_device, validation_seed=7)
+    batch = np.linspace(0.5, 2.0, 7)[:, None]
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    whole = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), progress=False)
+    chunked = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), chunk_size=3, progress=False,
+                              checkpoint_dir=str(tmp_path / "ck"))
+    f32 = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), progress=False, precision="f32")
+    dd = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), progress=False, precision="dd",
+                         kind="consistency_rapidturn")
+    after = cuda_kernels.LAUNCHES_BY_KERNEL
+    assert (after["B7a"] - before["B7a"], after["B7b"] - before["B7b"],
+            after["B7d"] - before["B7d"]) == (1 + 3, 1, 1)
+    assert np.array_equal(chunked, whole, equal_nan=True)
+    assert sorted(os.listdir(tmp_path / "ck")) == [
+        "chunk_000000.npy", "chunk_000001.npy", "chunk_000002.npy", "manifest.json"]
+    for ci in range(3):
+        saved = np.load(tmp_path / "ck" / f"chunk_{ci:06d}.npy")
+        assert np.array_equal(saved, whole[3 * ci:3 * ci + 3], equal_nan=True)
+    for s in (0, 6):
+        maps = np.stack(al.complete_analysis(batch[s], *DOC_EXTENT, 64, 80, progress=False))
+        assert np.array_equal(whole[s], maps, equal_nan=True)
+    assert f32.dtype == np.float32 and dd.shape == (7, 1, 64, 80)
+    plain = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), progress=False, engine="torch",
+                            kind="flag_quantum_dif", accuracy=0.3)
+    flags = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), progress=False,
+                            kind="flag_quantum_dif", accuracy=0.3)
+    np.testing.assert_array_equal(flags, plain)
+
+    def nanmin(maps):
+        return torch.where(torch.isnan(maps[0]), torch.inf, maps[0]).min()
+
+    reduced = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), chunk_size=2, progress=False,
+                              reduce_fn=nanmin)
+    np.testing.assert_array_equal(reduced, np.nanmin(whole[:, 0], axis=(1, 2)))

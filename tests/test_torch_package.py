@@ -19,6 +19,7 @@ EXPORTS = {
     "models",
     "background",
     "consistency_conditions",
+    "parallel",
 }
 
 MODULES = [
@@ -32,6 +33,8 @@ MODULES = [
     "inflatox_torch.ops.build",
     "inflatox_torch.ops.cuda_kernels",
     "inflatox_torch.ops.cuda_solver",
+    "inflatox_torch.parallel",
+    "inflatox_torch.parallel.sweep",
     "inflatox_torch.symbolic",
     "inflatox_torch.utils.devices",
 ]
