@@ -55,7 +55,10 @@ passes or ends the script with a nonzero exit:
     beside them;
 16. kernel B5b: the four on-trajectory scans at ``precision="dd"`` over
     1,048,576 points spread over the EGNO window, rtol 5e-10;
-17. timing of B2, B4, B5b and B1's new kinds against their plain versions;
+17. timing of B2, B4, B5b and B1's new kinds against their plain versions
+    (the grid kernels, here and in phases 18-19, launched through the
+    library's C entry with parameters and output made beforehand, so that
+    the wrapper's host work per call does not set the pace);
 18. the parameter sweep at bench cfg5's size (hyperinflation, 32 masses,
     512²) through ``parallel.parameter_sweep`` (one launch of kernel B7a),
     against the plain version on the card (rtol 5e-10, identical masks),
@@ -78,7 +81,14 @@ passes or ends the script with a nonzero exit:
     chunk loop's orders of copy and write.)
 
 Phase 11 takes the plain solver's time from phase 8's call instead of
-timing it twice more.
+timing it twice more; it also prints the attribution of B6's time per
+attempt (``scripts/probe_solver_chain.py``'s instrumented copy of the
+solver, built with the libraries in phase 2).  Phase 2 prints ptxas's
+registers and spills for every library; phases 17 and 21 print the
+operation bounds of B4, B7d and B1 on D5 counted both ways (every point
+evaluating whole model functions, and the staged kernel's row, column and
+point stages), and the end of the run each kernel's time beside its time
+before the staged grid kernel and the flat-loop solver (PERF.md).
 
 Every phase requires identical NaN/±inf masks.  The last lines are the
 kernel table (JSON), the card's name and power limit, and
@@ -139,6 +149,18 @@ EGNO_SWEEP_C = (900.0, 1100.0, 8)  # 8 values of c around EGNO_ARGS' 1000
 REHEARSAL_CHUNK = 32  # bench cfg5c's sweep at 512², chunk 32
 REHEARSAL_WORKER_S = 3.0  # the worker's sweep lasts at least this long on the card
 REHEARSAL_KILL_AT = 0.4  # share of the chunk files at which the worker is killed
+# kernel times before the staged grid kernel and the flat-loop solver (the
+# parenthesised times of PERF.md §5; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
+BEFORE_MS = {"grid_scan_b1": 0.3874, "points_scan_b5": 0.1934, "solver_b6_rkf": 15.03,
+          "solver_b6_rk4": 6.694, "grid_scan_b1_potential_8000": 0.1662,
+          "grid_scan_b1_hesse_8000": 0.6294, "grid_scan_b1_gradient_4096": 0.0867,
+          "grid_scan_b2_f32_potential_8000": 0.1691,
+          "grid_scan_b2_f32_complete_analysis_4096": 0.2264, "grid_scan_b1_d5_1024": 0.2486,
+          "grid_scan_b4_dd_egno_consistency_rapidturn_2048": 5.787,
+          "grid_scan_b4_dd_egno_complete_analysis_2048": 8.366,
+          "points_scan_b5b_dd_egno_1048576": 1.960, "grid_scan_b7a_sweep_32x512": 0.1961,
+          "grid_scan_b7b_f32_sweep_32x512": 0.1170, "grid_scan_b7d_dd_egno_sweep_8x512": 2.880}
 HERE = os.path.dirname(os.path.abspath(__file__))
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
 
@@ -382,6 +404,30 @@ def dd_point_ops(art, kind):
     return ops + RAPIDTURN_TAIL_OPS
 
 
+#: the model functions of each kind, as the kernel's point stage runs them
+KIND_FNS = {"complete_analysis": ("f_V", "f_hesse", "f_gsq"),
+            "consistency_rapidturn": ("f_V", "f_hesse")}
+
+
+def staged_ops(art, kind, precision, n0, n1, sets=1):
+    """f64 operations of the staged grid kernel's work for one launch
+    (inflatox_torch.lowering.cuda_codegen.grid_stage_ops): point stages at
+    every point, row stages once per row and set, column stages once per
+    column and set, then the tail at every point; in double-double each
+    operation by DD_OPS."""
+    from inflatox_torch.lowering.cuda_codegen import grid_stage_ops
+
+    def weigh(ops):
+        return sum((DD_OPS.get(k, 1) if precision == "dd" else 1) * v for k, v in ops.items())
+
+    counts = grid_stage_ops(art, precision)
+    total = sum(weigh(counts[f]["point"]) * n0 * n1 * sets
+                + weigh(counts[f]["row"]) * n0 * sets + weigh(counts[f]["col"]) * n1 * sets
+                for f in KIND_FNS[kind])
+    tail = TAIL_OPS if kind == "complete_analysis" else RAPIDTURN_TAIL_OPS
+    return total + tail * n0 * n1 * sets
+
+
 def attempt_ops(art, solver):
     """Operations of one adaptive attempt of kernel B6 (csrc/solver.cuh)."""
     from inflatox_torch.ops import cuda_solver as cs
@@ -564,6 +610,37 @@ def mp_model(art, args):
         return fn(*values)
 
     return run
+
+
+def direct_grid(art, kind, args_batch, extent, shape, device, precision="f64"):
+    """A launch of the grid-scan kernel through its library's C entry, the
+    parameters on the card and the output allocated once, for timing: the
+    wrapper's host work (about 0.1 ms a call) would otherwise set the pace
+    of chained launches of the cheap kinds.  Its output is held bit for bit
+    against ``scan_batch_cuda``'s first."""
+    import numpy as np
+    import torch
+    from inflatox_torch.ops.cuda_kernels import KINDS, _library, scan_batch_cuda
+
+    args_batch = np.atleast_2d(np.asarray(args_batch, dtype=np.float64))
+    lib = _library(art, precision)
+    kind_id, n_out = KINDS[kind]
+    dtype = torch.float32 if precision == "f32" else torch.float64
+    p = torch.tensor(args_batch, dtype=dtype, device=device)
+    out = torch.empty((len(args_batch), n_out, *shape), dtype=dtype, device=device)
+    x0a, x0b, x1a, x1b = extent
+    geometry = (x0a, (x0b - x0a) / shape[0], x1a, (x1b - x1a) / shape[1], *shape)
+
+    def launch():
+        err = lib.inflx_grid_scan_batch(kind_id, p.data_ptr(), out.data_ptr(), *geometry,
+                                        len(args_batch), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"direct launch of the {kind} grid scan failed: CUDA error {err}")
+
+    launch()
+    want = scan_batch_cuda(art, kind, args_batch, extent, shape, device, precision)
+    check(bool(((out == want) | (out.isnan() & want.isnan())).all()),
+          f"the direct {kind} launch differs from scan_batch_cuda's")
+    return launch
 
 
 def adaptive_turns(kernel, plain):
@@ -837,6 +914,9 @@ def main() -> int:
         lib = load(source)
         return lib, time.perf_counter() - t
 
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import probe_solver_chain as chain  # B6's attribution (phase 11)
+
     jobs = {
         "B1/B5 hyperinflation": (load_grid_scan, art.cuda_source()),
         "B6 hyperinflation": (load_solver, art.cuda_solver_source()),
@@ -845,6 +925,7 @@ def main() -> int:
         "B2 hyperinflation": (load_grid_scan, art.cuda_source("f32")),
         "B1/B5a D5": (load_grid_scan, d5.cuda_source("f64")),
         "B4/B5b EGNO": (load_grid_scan, egno.cuda_source("dd")),
+        "B6 hyperinflation, instrumented": (chain.load_parts, art.cuda_solver_source()),
     }
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
@@ -856,8 +937,10 @@ def main() -> int:
           f"kernel B1 first use (nvcc + load) {built['B1/B5 hyperinflation'][1]:.2f} s; all "
           f"{len(jobs)} kernel libraries, built at once, {t3 - t2:.2f} s; nvcc per library: "
           + ", ".join(f"{name} {lib.build_seconds:.2f} s" for name, (lib, _) in built.items()))
-    for name in ("B2 hyperinflation", "B1/B5a D5", "B4/B5b EGNO"):
-        log = built[name][0].build_log.read_text()
+    for name in jobs:
+        if name.startswith("B6"):
+            continue  # phase 7
+        log = open(built[name][0].build_log).read()
         regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
         spills = [int(a) + int(b) for a, b in
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
@@ -986,7 +1069,8 @@ def main() -> int:
           f"equal engine='torch' on the card ({plain_survey_s:.2f} s)")
 
     # 11. timing of B6 (the plain version's time is phase 8's one call: two
-    # more in turns took over a minute of the run) and of B5, in turns
+    # more in turns took over a minute of the run) and of B5, in turns; B6's
+    # attribution
     def solver_kernel():
         solve_cuda(art, *rkf["args"])
 
@@ -1009,7 +1093,22 @@ def main() -> int:
           f"{rkf['n_ops']:.4e} f64 operations, {attempt_ops(art, 'rkf')} per attempt); "
           f"serial chain: trajectory 0 alone {one_ms:.4f} ms for "
           f"{rkf['attempts'][0].item()} attempts, {latency_us:.4f} us per attempt, × "
-          f"{STEPS - 1} rows × {rkf['mean_attempts']:.4f} mean attempts = {chain_ms:.4f} ms")
+          f"{STEPS - 1} rows × {rkf['mean_attempts']:.4f} mean attempts = {chain_ms:.4f} ms; "
+          f"the batch {b6_ms / one_ms:.3f}x trajectory 0 alone, whose attempts are "
+          f"{rkf['attempts'][0].item()} of the batch's most {rkf['attempts'].max().item()}")
+    parts_lib = built["B6 hyperinflation, instrumented"][0]
+    for what, (f_b, d_b) in (("the 4096 batch", (ft, dt)), ("trajectory 0 alone",
+                                                            (ft[:1], dt[:1]))):
+        att = chain.attribute(parts_lib, 0, f_b, d_b, pt, steps, max_err)
+        check(att["attempts_traj0"] == rkf["attempts"][0].item(),
+              "B6 attribution: the instrumented copy made other attempts")
+        print(f"B6 rkf attribution on {card}, {what} (scripts/probe_solver_chain.py's "
+              f"clock64() stamps): trajectory 0 {att['attempts_traj0']} attempts, "
+              f"{att['instrumented_cycles_per_attempt_traj0']:.0f} cycles per attempt "
+              "instrumented: " + ", ".join(f"{k} {v:.0f}"
+                                           for k, v in att["parts_per_attempt_traj0"].items())
+              + "; stamps per attempt " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in att["stamps_per_attempt_traj0"].items()))
 
     def rk4_kernel():
         solve_cuda(art, *rk4["args"])
@@ -1214,7 +1313,8 @@ def main() -> int:
     print(f"{label}: launches={b5b_launches}")
 
     # 17. timing of B2, B4, B5b and B1's new kinds, each in turns with its
-    # plain version
+    # plain version; the grid kernels through direct_grid (the wrapper's host
+    # work per call would set the pace of the cheap kinds)
     timed_rows = []
 
     def timed_row(name, source, replaces, launches, max_abs, kernel, plain, n_bytes, n_ops,
@@ -1231,42 +1331,47 @@ def main() -> int:
     big = (n0, n0)
     timed_row(f"grid_scan_b1_potential_{n0}", grid_src, f"{pk}:388",
               *surfaces[("potential", "f64")],
-              lambda: scan_cuda(art, "potential", args, DOC_EXTENT, big, device),
+              direct_grid(art, "potential", args, DOC_EXTENT, big, device),
               lambda: scan_torch(art, "potential", args, DOC_EXTENT, big, device),
               n0 * n0 * 8, lowered_ops(art.potential) * n0 * n0)
     timed_row(f"grid_scan_b1_hesse_{n0}", grid_src, f"{pk}:388", *surfaces[("hesse", "f64")],
-              lambda: scan_cuda(art, "hesse", args, DOC_EXTENT, big, device),
+              direct_grid(art, "hesse", args, DOC_EXTENT, big, device),
               lambda: scan_torch(art, "hesse", args, DOC_EXTENT, big, device),
               4 * n0 * n0 * 8, lowered_ops(art._hesse) * n0 * n0)
     timed_row(f"grid_scan_b1_gradient_{n_flag}", grid_src, f"{pk}:388", flag_launches,
               flag_max_abs,
-              lambda: scan_cuda(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device),
+              direct_grid(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device),
               lambda: scan_torch(art, "gradient", args, DOC_EXTENT, (n_flag, n_flag), device),
               2 * n_flag * n_flag * 8, lowered_ops(art._grad) * n_flag * n_flag)
     timed_row(f"grid_scan_b2_f32_potential_{n0}", grid_src, f"{pk}:231",
               *surfaces[("potential", "f32")],
-              lambda: scan_cuda(art, "potential", args, DOC_EXTENT, big, device, "f32"),
+              direct_grid(art, "potential", args, DOC_EXTENT, big, device, "f32"),
               lambda: scan_torch(art, "potential", args, DOC_EXTENT, big, device, "f32"),
               n0 * n0 * 4, lowered_ops(art.potential) * n0 * n0, F32_OPS_PER_S)
     timed_row(f"grid_scan_b2_f32_complete_analysis_{n}", grid_src, f"{pk}:231", b2_launches,
               b2_max_abs,
-              lambda: scan_cuda(art, "complete_analysis", args, DOC_EXTENT, (n, n), device, "f32"),
+              direct_grid(art, "complete_analysis", args, DOC_EXTENT, (n, n), device, "f32"),
               lambda: scan_torch(art, "complete_analysis", args, DOC_EXTENT, (n, n), device,
                                  "f32"),
               6 * n * n * 4, point_ops(art) * n * n, F32_OPS_PER_S)
+    # the operation-bound rows: counted for the staged kernel's work, the
+    # count of whole model functions at every point beside it
+    d5_ops = staged_ops(d5, "complete_analysis", "f64", n_d5, n_d5)
+    d5_whole = point_ops(d5) * n_d5 * n_d5
     timed_row(f"grid_scan_b1_d5_{n_d5}", grid_src, f"{pk}:835", d5_launches, d5_max_abs,
-              lambda: scan_cuda(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5),
-                                device),
+              direct_grid(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5), device),
               lambda: scan_torch(d5, "complete_analysis", d5_args, D5_EXTENT, (n_d5, n_d5),
                                  device),
-              6 * n_d5 * n_d5 * 8, point_ops(d5) * n_d5 * n_d5)
+              6 * n_d5 * n_d5 * 8, d5_ops)
+    recounts = [("B1 on D5", d5_whole, d5_ops)]
     for kind, planes in (("consistency_rapidturn", 1), ("complete_analysis", 6)):
+        b4_ops = staged_ops(egno, kind, "dd", n_e, n_e)
         timed_row(f"grid_scan_b4_dd_egno_{kind}_{n_e}", grid_src, f"{pk}:1536", *b4[kind],
-                  lambda kind=kind: scan_cuda(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e),
-                                              device, "dd"),
+                  direct_grid(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e), device, "dd"),
                   lambda kind=kind: scan_torch(egno, kind, egno_args, EGNO_EXTENT, (n_e, n_e),
                                                device, "dd"),
-                  planes * n_e * n_e * 8, dd_point_ops(egno, kind) * n_e * n_e)
+                  planes * n_e * n_e * 8, b4_ops)
+        recounts.append((f"B4 {kind}", dd_point_ops(egno, kind) * n_e * n_e, b4_ops))
     timed_row(f"points_scan_b5b_dd_egno_{n_egno}", grid_src, f"{pk}:1101", b5b_launches,
               b5b_max_abs,
               lambda: scan_points_cuda(egno, "complete_analysis", egno_args, egno_pts, "dd"),
@@ -1386,10 +1491,9 @@ def main() -> int:
     sweep_bytes = SWEEP_SETS * 6 * SWEEP_N * SWEEP_N
     timed_row(f"grid_scan_b7a_sweep_{SWEEP_SETS}x{SWEEP_N}", grid_src, f"{pk}:536",
               b7a_launches, b7a_max_abs,
-              lambda: scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
+              direct_grid(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
               lambda: scan_batch_torch(art, "complete_analysis", masses, DOC_EXTENT, sw, device),
               sweep_bytes * 8, point_ops(art) * SWEEP_SETS * SWEEP_N * SWEEP_N)
-    b7a_ms = timed_rows[-1]["ms"]
 
     def b1_chain():
         for s in range(SWEEP_SETS):
@@ -1424,19 +1528,24 @@ def main() -> int:
     del p_sets, out_sets, sweep_dev
     timed_row(f"grid_scan_b7b_f32_sweep_{SWEEP_SETS}x{SWEEP_N}", grid_src, f"{pk}:621",
               b7b_launches, b7b_max_abs,
-              lambda: scan_batch_cuda(art, "complete_analysis", masses, DOC_EXTENT, sw, device,
-                                      "f32"),
+              direct_grid(art, "complete_analysis", masses, DOC_EXTENT, sw, device, "f32"),
               lambda: scan_batch_torch(art, "complete_analysis", masses, DOC_EXTENT, sw, device,
                                        "f32"),
               sweep_bytes * 4, point_ops(art) * SWEEP_SETS * SWEEP_N * SWEEP_N, F32_OPS_PER_S)
     n_dd = len(c_values) * SWEEP_N * SWEEP_N
+    b7d_ops = staged_ops(egno, "consistency_rapidturn", "dd", SWEEP_N, SWEEP_N, len(c_values))
+    recounts.append(("B7d", dd_point_ops(egno, "consistency_rapidturn") * n_dd, b7d_ops))
     timed_row(f"grid_scan_b7d_dd_egno_sweep_{len(c_values)}x{SWEEP_N}", grid_src, f"{pk}:1689",
               b7d_launches, b7d_max_abs,
-              lambda: scan_batch_cuda(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw,
-                                      device, "dd"),
+              direct_grid(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw, device,
+                          "dd"),
               lambda: scan_batch_torch(egno, "consistency_rapidturn", egno_batch, EGNO_EXTENT, sw,
                                        device, "dd"),
-              n_dd * 8, dd_point_ops(egno, "consistency_rapidturn") * n_dd)
+              n_dd * 8, b7d_ops)
+    for name, whole, staged in recounts:
+        print(f"operation bound of {name}: {staged:.4e} f64 operations for the staged kernel "
+              f"({bound(0, staged)[0]:.4f} ms), {whole:.4e} with whole model functions at "
+              f"every point ({bound(0, whole)[0]:.4f} ms)")
 
     def sweep_host_s(fn, clear=None, repeats=3):
         """Median host seconds of ``fn()`` over ``repeats`` calls after one
@@ -1470,12 +1579,10 @@ def main() -> int:
           f"reduce_fn {reduced_s:.4f} s; chunk 8 {chunk8_s:.4f} s, chunk 8 checkpointed "
           f"{ck8_s:.4f} s")
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
-    print(f"B1 at cfg1 4096² after the set axis: {b1_ms:.4f} ms against 0.3813 ms before it "
-          f"(PERF.md): {(b1_ms / 0.3813 - 1) * 100:+.2f} %; B7a at cfg5 {b7a_ms:.4f} ms")
     print(f"phases 18-21: {time.perf_counter() - t_phase18:.1f} s; the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [
+    kernels = [
         row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",
             "inflatox_tpu/ops/pallas_kernels.py:388", b1_launches, b1_max_abs, b1_ms,
             b1_plain_ms, b1_bound),
@@ -1489,7 +1596,14 @@ def main() -> int:
             "inflatox_tpu/ops/pallas_solver.py:173", rk4["launches"], rk4["max_abs"], rk4_ms,
             rk4_plain_ms, rk4["bound"]),
         *timed_rows,
-    ]}))
+    ]
+    print(f"kernel times on {card} beside those before the staged grid kernel and the "
+          "flat-loop solver (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W; another run, the grid "
+          "kernels then timed through their wrappers, so a guide: scripts/probe_grid_stages.py "
+          "and scripts/probe_solver_chain.py compare the trees in turns): " + "; ".join(
+              f"{k['name']} {k['ms']:.4f} ms (before {BEFORE_MS[k['name']]:.4f}, "
+              f"{BEFORE_MS[k['name']] / k['ms']:.2f}x)" for k in kernels))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

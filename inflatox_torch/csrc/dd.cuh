@@ -209,24 +209,27 @@ INFLX_DD_CALL dd dd_pow(dd x, dd y) {
   return (negative && odd) ? dd_neg(out) : out;
 }
 
-// b**n for n > 0 by repeated squaring, the torch lowering's _ipow product
-// for product; 1/b**|n| for n < 0
-INFLX_FN dd dd_powu(dd b, int n) {
-  dd acc = b;
-  bool have = false;
-  for (;;) {
-    if (n & 1) {
-      acc = have ? dd_mul(acc, b) : b;
-      have = true;
-    }
-    n >>= 1;
-    if (!n) return acc;
-    b = dd_mul(b, b);
+// b**N by repeated squaring, the torch lowering's _ipow product for product
+// (from the lowest set bit of N, each bit's square times the product so far,
+// b squared between bits), unrolled at compile time; 1/b**|N| for N < 0
+template <int N, bool HAVE>
+INFLX_FN dd dd_powi_bits(dd acc, dd b) {
+  if constexpr ((N & 1) != 0) acc = HAVE ? dd_mul(acc, b) : b;
+  if constexpr ((N >> 1) == 0) {
+    return acc;
+  } else {
+    return dd_powi_bits<(N >> 1), (HAVE || (N & 1) != 0)>(acc, dd_mul(b, b));
   }
 }
-INFLX_FN dd dd_powi(dd b, int n) {
-  if (n < 0) return dd_div(dd_c(1.0), dd_powu(b, -n));
-  return n == 0 ? dd_c(1.0) : dd_powu(b, n);
+template <int N>
+INFLX_FN dd dd_powi(dd b) {
+  if constexpr (N == 0) {
+    return dd_c(1.0);
+  } else if constexpr (N < 0) {
+    return dd_div(dd_c(1.0), dd_powi_bits<-N, false>(b, b));
+  } else {
+    return dd_powi_bits<N, false>(b, b);
+  }
 }
 
 INFLX_FN dd dd_abs(dd a) { return a.hi < 0.0 ? dd_neg(a) : a; }

@@ -22,13 +22,22 @@
 // f64 tail; B4 is bound by its f64 operations (a double-double add is about
 // twenty), not by its writes.
 //
-// One thread per grid point (i, j), j fastest, so each output plane is
-// written coalesced.  Each thread derives its own coordinates, as the TPU
-// kernel does from program_id + iota: the only input read is the parameter
-// vector.  It evaluates the model functions, then the point tail
-// (anguelova.cuh), and writes n_out planes of (n0, n1).  Coordinates are
-// written with explicit round-to-nearest add and multiply, so nvcc cannot
-// contract them into an FMA: they equal the plain version's bit for bit
+// The generated header splits each model function into three stages by
+// what its values read: a row stage (x[0] and the parameters), a column
+// stage (x[1] and the parameters) and a point stage (both), each value
+// computed once with its operations in their order, so the split changes
+// no bit.  A block covers kRows rows × 256 columns, j fastest, so each
+// output plane is written coalesced.  Lane l of warp f computes the row
+// stage of the kind's function f for the block's row l into shared memory;
+// each thread keeps its column's column stage in registers; after a barrier
+// each thread runs the point stage and the point tail (anguelova.cuh) on
+// each of the block's rows and writes n_out planes of (n0, n1).  At EGNO's
+// and D5's sizes that takes the r-only pow/log/sqrt and the θ-only cos/sin
+// out of the per-point work (PERF.md).  Each thread derives its own
+// coordinates, as the TPU kernel does from program_id + iota: the only
+// input read is the parameter vector.  Coordinates are written with
+// explicit round-to-nearest add and multiply, so nvcc cannot contract them
+// into an FMA: they equal the plain version's bit for bit
 // (inflatox_torch/ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
 //
 // Kernels B7a, B7b and B7d are B1, B2 and B4 over a batch of S parameter
@@ -55,8 +64,9 @@
 // into (hi, lo) f32 pairs padded with 1.0 into (32, 128) blocks and write
 // f32 output pairs; B5b, the double-double build, replaces _kernel_tf_ot
 // (:1101).  Here the points are exact f64: one thread per point i of a
-// contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the same model
-// functions and tail, and writes n_out planes of (n,), coalesced.  B5a's
+// contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the whole model
+// functions (its points share nothing) and the tail, and writes n_out
+// planes of (n,), coalesced.  B5a's
 // bound is bytes: 16 bytes read and 8·n_out written per point.
 
 #include <cuda_runtime.h>
@@ -114,40 +124,136 @@ static const int kThreads = 256;
 static const int64_t kMaxGridY = 65535;
 // The most sets one inflx_grid_scan_batch launch takes (gridDim.z's limit).
 static const int64_t kMaxSets = 65535;
+// Rows of one block, at most 32 (one lane of a warp per row).
+// scripts/probe_grid_stages.py measures other values with -DINFLX_ROWS.
+#ifndef INFLX_ROWS
+#define INFLX_ROWS 16
+#endif
+static const int kRows = INFLX_ROWS;
+static_assert(kRows >= 1 && kRows <= 32, "INFLX_ROWS must be in 1..32");
+
+// The model functions each kind evaluates.
+__host__ __device__ constexpr bool inflx_uses_v(int kind) {
+  return kind != KIND_HESSE && kind != KIND_GRADIENT;
+}
+__host__ __device__ constexpr bool inflx_uses_hesse(int kind) {
+  return kind == KIND_COMPLETE_ANALYSIS || kind == KIND_CONSISTENCY ||
+         kind == KIND_CONSISTENCY_RAPIDTURN || kind == KIND_HESSE;
+}
+__host__ __device__ constexpr bool inflx_uses_gsq(int kind) {
+  return kind == KIND_COMPLETE_ANALYSIS || kind == KIND_EPSILON_V;
+}
+__host__ __device__ constexpr bool inflx_uses_grad(int kind) { return kind == KIND_GRADIENT; }
+
+// Where each function's row values (r) and column values (c) sit in a
+// kind's arrays: V, then the Hesse, |grad V|^2 and the gradient, each
+// present only if the kind uses it.
+template <int KIND>
+struct inflx_layout {
+  static constexpr int v_r = 0, v_c = 0;
+  static constexpr int h_r = v_r + (inflx_uses_v(KIND) ? F_V_NR : 0);
+  static constexpr int h_c = v_c + (inflx_uses_v(KIND) ? F_V_NC : 0);
+  static constexpr int s_r = h_r + (inflx_uses_hesse(KIND) ? F_HESSE_NR : 0);
+  static constexpr int s_c = h_c + (inflx_uses_hesse(KIND) ? F_HESSE_NC : 0);
+  static constexpr int g_r = s_r + (inflx_uses_gsq(KIND) ? F_GSQ_NR : 0);
+  static constexpr int g_c = s_c + (inflx_uses_gsq(KIND) ? F_GSQ_NC : 0);
+  static constexpr int nr = g_r + (inflx_uses_grad(KIND) ? F_GRAD_NR : 0);
+  static constexpr int nc = g_c + (inflx_uses_grad(KIND) ? F_GRAD_NC : 0);
+  static constexpr int n_fns = inflx_uses_v(KIND) + inflx_uses_hesse(KIND) +
+                               inflx_uses_gsq(KIND) + inflx_uses_grad(KIND);
+};
+
+// Row stage of the kind's function number f (in the layout's order), from
+// x[0]: writes that function's row values to r.
+template <int KIND>
+__device__ __forceinline__ void inflx_row_stage(int f, const coord_t* x, const coord_t* p,
+                                                coord_t* r) {
+  typedef inflx_layout<KIND> L;
+  int k = 0;
+  if (inflx_uses_v(KIND)) {
+    if (f == k) f_V_row(x, p, r + L::v_r);
+    ++k;
+  }
+  if (inflx_uses_hesse(KIND)) {
+    if (f == k) f_hesse_row(x, p, r + L::h_r);
+    ++k;
+  }
+  if (inflx_uses_gsq(KIND)) {
+    if (f == k) f_gsq_row(x, p, r + L::s_r);
+    ++k;
+  }
+  if (inflx_uses_grad(KIND) && f == k) f_grad_row(x, p, r + L::g_r);
+}
+
+// Column stage of every function of the kind, from x[1].
+template <int KIND>
+__device__ __forceinline__ void inflx_col_stage(const coord_t* x, const coord_t* p,
+                                                coord_t* c) {
+  typedef inflx_layout<KIND> L;
+  if (inflx_uses_v(KIND)) f_V_col(x, p, c + L::v_c);
+  if (inflx_uses_hesse(KIND)) f_hesse_col(x, p, c + L::h_c);
+  if (inflx_uses_gsq(KIND)) f_gsq_col(x, p, c + L::s_c);
+  if (inflx_uses_grad(KIND)) f_grad_col(x, p, c + L::g_c);
+}
+
+// The model functions at one point: from the row values r and column
+// values c of the kind's layout (the grid kernels), or whole (the point
+// kernels, whose points share nothing).
+template <int KIND>
+struct inflx_staged {
+  typedef inflx_layout<KIND> L;
+  const coord_t *x, *p, *r, *c;
+  __device__ __forceinline__ real_t V() const { return f_V_point(x, p, r + L::v_r, c + L::v_c); }
+  __device__ __forceinline__ void hesse(real_t* h) const {
+    f_hesse_point(x, p, r + L::h_r, c + L::h_c, h);
+  }
+  __device__ __forceinline__ real_t gsq() const {
+    return f_gsq_point(x, p, r + L::s_r, c + L::s_c);
+  }
+  __device__ __forceinline__ void grad(real_t* g) const {
+    f_grad_point(x, p, r + L::g_r, c + L::g_c, g);
+  }
+};
+struct inflx_whole {
+  const coord_t *x, *p;
+  __device__ __forceinline__ real_t V() const { return f_V(x, p); }
+  __device__ __forceinline__ void hesse(real_t* h) const { f_hesse(x, p, h); }
+  __device__ __forceinline__ real_t gsq() const { return f_gsq(x, p); }
+  __device__ __forceinline__ void grad(real_t* g) const { f_grad(x, p, g); }
+};
 
 // One kind at one point: writes o[k * plane] for the kind's n_out planes.
-template <int KIND, typename P>
-__device__ __forceinline__ void inflx_evaluate(const coord_t* x, P p, real_t* o,
-                                               int64_t plane) {
+template <int KIND, typename M>
+__device__ __forceinline__ void inflx_evaluate(const M& m, real_t* o, int64_t plane) {
   if (KIND == KIND_POTENTIAL) {
-    o[0] = f_V(x, p);
+    o[0] = m.V();
     return;
   }
   if (KIND == KIND_GRADIENT) {
     real_t g[2];
-    f_grad(x, p, g);
+    m.grad(g);
     o[0] = g[0];
     o[plane] = g[1];
     return;
   }
   real_t h[4];  // V_vv, V_vw, V_wv, V_ww
   if (KIND == KIND_HESSE) {
-    f_hesse(x, p, h);
+    m.hesse(h);
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k * plane] = h[k];
     return;
   }
-  const real_t v = f_V(x, p);
+  const real_t v = m.V();
   if (KIND == KIND_EPSILON_V) {
-    o[0] = inflx_tail_epsilon_v(v, f_gsq(x, p));
+    o[0] = inflx_tail_epsilon_v(v, m.gsq());
     return;
   }
-  f_hesse(x, p, h);
+  m.hesse(h);
   if (KIND == KIND_COMPLETE_ANALYSIS) {
-    real_t r[6];
-    inflx_tail_complete(v, h[0], h[2], h[3], f_gsq(x, p), r);
+    real_t t[6];
+    inflx_tail_complete(v, h[0], h[2], h[3], m.gsq(), t);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) o[k * plane] = r[k];
+    for (int k = 0; k < 6; ++k) o[k * plane] = t[k];
   } else if (KIND == KIND_CONSISTENCY) {
     o[0] = inflx_tail_consistency(v, h[0], h[2], h[3]);
   } else {
@@ -173,14 +279,21 @@ __host__ __device__ constexpr int inflx_n_out(int kind) {
                                         : 1;
 }
 
+// A block covers kRows rows × kThreads columns.  Lane l of warp f computes
+// the row stage of the kind's function f for the block's row l into shared
+// memory; every thread keeps its column's column stage in registers; after
+// the barrier each thread runs the point stage and the tail for its column
+// on each of the block's rows, each row's planes stored coalesced.
 // set_stride: n_out * n0 * n1, the distance between two sets' outputs.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
                  double x0a, double dx0, double x1a, double dx1,
                  int64_t n0, int64_t n1, int64_t set_stride) {
+  typedef inflx_layout<KIND> L;
+  static_assert(L::n_fns * 32 <= kThreads, "a warp for each function's row stage");
+  __shared__ coord_t rows[kRows][L::nr > 0 ? L::nr : 1];
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n1) return;
   const int64_t plane = n0 * n1;
   const unsigned s = blockIdx.z;  // the parameter set
   const real_t* p_in = p_sets + (size_t)s * INFLX_NP;
@@ -188,12 +301,30 @@ grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
   out += s * set_stride;
   coord_t x[2];
   x[1] = inflx_coord(x1a, dx1, j);
-  for (int64_t i = blockIdx.y; i < n0; i += gridDim.y) {
-    x[0] = inflx_coord(x0a, dx0, i);
-    inflx_evaluate<KIND>(x, p, out + i * n1 + j, plane);
+  coord_t c[L::nc > 0 ? L::nc : 1];
+  inflx_col_stage<KIND>(x, p, c);
+  const int lane = threadIdx.x % 32;
+  for (int64_t i0 = (int64_t)blockIdx.y * kRows; i0 < n0; i0 += (int64_t)gridDim.y * kRows) {
+    if (lane < kRows && i0 + lane < n0) {
+      coord_t xr[2];
+      xr[0] = inflx_coord(x0a, dx0, i0 + lane);
+      xr[1] = x[1];
+      inflx_row_stage<KIND>(threadIdx.x / 32, xr, p, rows[lane]);
+    }
+    __syncthreads();
+    if (j < n1) {
+      const int n_rows = n0 - i0 < kRows ? (int)(n0 - i0) : kRows;
+      for (int k = 0; k < n_rows; ++k) {
+        x[0] = inflx_coord(x0a, dx0, i0 + k);
+        const inflx_staged<KIND> m = {x, p, rows[k], c};
+        inflx_evaluate<KIND>(m, out + (i0 + k) * n1 + j, plane);
+      }
+    }
+    __syncthreads();
   }
 }
 
+// One thread per point: the whole model functions.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 points_scan_kernel(const real_t* __restrict__ p_in, const real_t* __restrict__ pts,
@@ -202,7 +333,8 @@ points_scan_kernel(const real_t* __restrict__ p_in, const real_t* __restrict__ p
   if (i >= n) return;
   INFLX_PARAMS(p_in)
   const coord_t x[2] = {inflx_point(pts[2 * i]), inflx_point(pts[2 * i + 1])};
-  inflx_evaluate<KIND>(x, p, out + i, n);
+  const inflx_whole m = {x, p};
+  inflx_evaluate<KIND>(m, out + i, n);
 }
 
 #define INFLX_ANALYSIS_CASES(LAUNCH)                                   \
@@ -229,8 +361,10 @@ int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
   if (n0 <= 0 || n1 <= 0 || n_sets <= 0 || n_sets > kMaxSets)
     return (int)cudaErrorInvalidValue;
   const dim3 block(kThreads);
+  const int64_t row_blocks = (n0 + kRows - 1) / kRows;
   const dim3 grid((unsigned)((n1 + kThreads - 1) / kThreads),
-                  (unsigned)(n0 < kMaxGridY ? n0 : kMaxGridY), (unsigned)n_sets);
+                  (unsigned)(row_blocks < kMaxGridY ? row_blocks : kMaxGridY),
+                  (unsigned)n_sets);
   cudaStream_t s = (cudaStream_t)stream;
   const real_t* pp = (const real_t*)p;
   real_t* po = (real_t*)out;

@@ -13,6 +13,16 @@
 // err = 0, 0.1 when err is not finite; accept when err·(1/max_err) <= 1.1,
 // dt <= 1e-250 or dt is not finite; dt ← dt·q after accepts and rejects.
 //
+// One flat loop runs all of a trajectory's attempts, with the row counter
+// in a register: an accepted attempt stores its row and the next attempt
+// starts at once, so the lanes of a warp no longer wait at every row for
+// the lane that needs the most attempts there.  The first stage of an
+// attempt depends on y alone: after a reject y is unchanged and its slope
+// k0 is reused, bit for bit; after an accept k0 = f(y) was computed before
+// the controller's pow, in the same straight-line code, so that the two
+// chains overlap (on a reject that slope is dropped).  Step doubling's
+// first half step starts from the same y, so RK4 takes its k0 too.
+//
 // The attempt loop has no cap (the TPU kernel's 8-attempt cap exists only
 // because its lanes run in lock-step).  It ends: a reject has
 // err > 1.1·max_err, so q <= 1.1^(-1/(s+1)) (0.9865 for rkf, 0.9811 for
@@ -31,8 +41,8 @@
 // Functions are INFLX_FN (__device__ __forceinline__ under nvcc, static
 // inline elsewhere): the CPU tests build this header with the host's C++
 // compiler.  The including file first includes the generated model header
-// (CompiledModel.cuda_solver_source: INFLX_NF, inflx_eom, f_eom_h,
-// f_eom_hdot).
+// (CompiledModel.cuda_solver_source: INFLX_NF, f_eom_h, and inflx_deriv,
+// which gives the velocities, the n EoM terms and Ḣ from one body).
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -43,31 +53,50 @@
 
 enum { INFLX_RKF45 = 0, INFLX_RK4 = 1 };
 
-// y' for the state y
-INFLX_FN void inflx_deriv(const double* y, const double* p, double* k) {
-  const double* x = y;
-  const double* xd = y + INFLX_NF;
-  double eom[INFLX_NF];
-  inflx_eom(x, xd, p, eom);
+// Attribution hooks: INFLX_STAMP(part, value) ends a part of an attempt
+// once `value`, its last result, exists.  They expand to nothing unless the
+// including file defines INFLX_STAMP (scripts/probe_solver_chain.py builds
+// instrumented copies of the library that way).
+#ifndef INFLX_STAMP
+#define INFLX_STAMP(part, value)
+#endif
+enum {
+  INFLX_PART_DERIV,    // a stage's derivative
+  INFLX_PART_COMBINE,  // a stage input, or the hi/lo solutions
+  INFLX_PART_NORM,     // the error norm and its sqrt
+  INFLX_PART_RECIP,    // (1/max(err, 1e-300))·max_err
+  INFLX_PART_POW,      // the controller's pow and clamps
+  INFLX_PART_ACCEPT,   // the accept test, state, t and dt updates
+  INFLX_PART_STORE,    // the row store
+  INFLX_N_PARTS
+};
+
+// y' for the state y: φ' = χ, χ'_a = -eom_a - (3H)·χ_a, H' = Ḣ
+INFLX_FN void inflx_slope(const double* y, const double* p, double* k) {
+  double d[INFLX_NY];
+  inflx_deriv(y, y + INFLX_NF, p, d);
 #pragma unroll
   for (int a = 0; a < INFLX_NF; ++a) {
-    k[a] = xd[a];
-    k[INFLX_NF + a] = inflx_sub(-eom[a], inflx_mul(inflx_mul(3.0, y[2 * INFLX_NF]), xd[a]));
+    k[a] = d[a];
+    k[INFLX_NF + a] =
+        inflx_sub(-d[INFLX_NF + a], inflx_mul(inflx_mul(3.0, y[2 * INFLX_NF]), y[INFLX_NF + a]));
   }
-  k[2 * INFLX_NF] = f_eom_hdot(x, xd, p);
+  k[2 * INFLX_NF] = d[2 * INFLX_NF];
 }
 
-// One explicit Runge-Kutta step with S stages: stage inputs
-// y + Σ_m (dt·A[n][m])·k_m, hi = y + Σ_n (dt·bh[n])·k_n and, when LO,
-// lo = y + Σ_n (dt·bl[n])·k_n; zero coefficients are skipped.
+// One explicit Runge-Kutta step with S stages from y, whose slope k0 is
+// given: stage inputs y + Σ_m (dt·A[n][m])·k_m, hi = y + Σ_n (dt·bh[n])·k_n
+// and, when LO, lo = y + Σ_n (dt·bl[n])·k_n; zero coefficients are skipped.
 template <int S, bool LO>
 INFLX_FN void inflx_rk_step(const double (&A)[S][S], const double (&bh)[S],
-                            const double (&bl)[S], const double* y, double dt,
-                            const double* p, double* hi, double* lo) {
+                            const double (&bl)[S], const double* y, const double* k0,
+                            double dt, const double* p, double* hi, double* lo) {
   double k[S][INFLX_NY];
   double yn[INFLX_NY];
 #pragma unroll
-  for (int n = 0; n < S; ++n) {
+  for (int c = 0; c < INFLX_NY; ++c) k[0][c] = k0[c];
+#pragma unroll
+  for (int n = 1; n < S; ++n) {
 #pragma unroll
     for (int c = 0; c < INFLX_NY; ++c) {
       double acc = y[c];
@@ -76,7 +105,9 @@ INFLX_FN void inflx_rk_step(const double (&A)[S][S], const double (&bh)[S],
         if (A[n][m] != 0.0) acc = inflx_add(acc, inflx_mul(inflx_mul(dt, A[n][m]), k[m][c]));
       yn[c] = acc;
     }
-    inflx_deriv(yn, p, k[n]);
+    INFLX_STAMP(INFLX_PART_COMBINE, yn[INFLX_NY - 1]);
+    inflx_slope(yn, p, k[n]);
+    INFLX_STAMP(INFLX_PART_DERIV, k[n][INFLX_NY - 1]);
   }
 #pragma unroll
   for (int c = 0; c < INFLX_NY; ++c) {
@@ -90,11 +121,12 @@ INFLX_FN void inflx_rk_step(const double (&A)[S][S], const double (&bh)[S],
     hi[c] = acch;
     if (LO) lo[c] = accl;
   }
+  INFLX_STAMP(INFLX_PART_COMBINE, hi[INFLX_NY - 1]);
 }
 
 // Fehlberg 4(5): (5th-order, 4th-order) solutions
-INFLX_FN void inflx_embedded_rkf45(const double* y, double dt, const double* p,
-                                   double* hi, double* lo) {
+INFLX_FN void inflx_embedded_rkf45(const double* y, const double* k0, double dt,
+                                   const double* p, double* hi, double* lo) {
   const double A[6][6] = {
       {0.0, 0.0, 0.0, 0.0, 0.0, 0.0},
       {1.0 / 4.0, 0.0, 0.0, 0.0, 0.0, 0.0},
@@ -107,12 +139,13 @@ INFLX_FN void inflx_embedded_rkf45(const double* y, double dt, const double* p,
                         28561.0 / 56430.0, -9.0 / 50.0, 2.0 / 55.0};
   const double b4[6] = {25.0 / 216.0, 0.0, 1408.0 / 2565.0,
                         2197.0 / 4104.0, -1.0 / 5.0, 0.0};
-  inflx_rk_step<6, true>(A, b5, b4, y, dt, p, hi, lo);
+  inflx_rk_step<6, true>(A, b5, b4, y, k0, dt, p, hi, lo);
 }
 
-// classical RK4 with step doubling: (two half steps, one full step)
-INFLX_FN void inflx_embedded_rk4(const double* y, double dt, const double* p,
-                                 double* hi, double* lo) {
+// classical RK4 with step doubling: (two half steps, one full step); the
+// full step and the first half step share y's slope k0
+INFLX_FN void inflx_embedded_rk4(const double* y, const double* k0, double dt,
+                                 const double* p, double* hi, double* lo) {
   const double A[4][4] = {
       {0.0, 0.0, 0.0, 0.0},
       {0.5, 0.0, 0.0, 0.0},
@@ -120,49 +153,19 @@ INFLX_FN void inflx_embedded_rk4(const double* y, double dt, const double* p,
       {0.0, 0.0, 1.0, 0.0},
   };
   const double b[4] = {1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0};
-  double half[INFLX_NY];
-  inflx_rk_step<4, false>(A, b, b, y, dt, p, lo, nullptr);
-  inflx_rk_step<4, false>(A, b, b, y, inflx_mul(dt, 0.5), p, half, nullptr);
-  inflx_rk_step<4, false>(A, b, b, half, inflx_mul(dt, 0.5), p, hi, nullptr);
+  double half[INFLX_NY], k0_half[INFLX_NY];
+  inflx_rk_step<4, false>(A, b, b, y, k0, dt, p, lo, nullptr);
+  inflx_rk_step<4, false>(A, b, b, y, k0, inflx_mul(dt, 0.5), p, half, nullptr);
+  inflx_slope(half, p, k0_half);
+  INFLX_STAMP(INFLX_PART_DERIV, k0_half[INFLX_NY - 1]);
+  inflx_rk_step<4, false>(A, b, b, half, k0_half, inflx_mul(dt, 0.5), p, hi, nullptr);
 }
 
-// One adaptive attempt from (y, dt, t); on accept y and t advance.  dt is
-// rescaled either way.  Returns whether the attempt was accepted.
-template <int METHOD>
-INFLX_FN bool inflx_attempt(double* y, double* dt, double* t, const double* p,
-                            double max_err, double inv_max_err) {
-  const int stages = METHOD == INFLX_RKF45 ? 6 : 4;
-  const double exponent = 1.0 / (stages + 1);
-  double hi[INFLX_NY], lo[INFLX_NY];
-  if (METHOD == INFLX_RKF45) {
-    inflx_embedded_rkf45(y, *dt, p, hi, lo);
-  } else {
-    inflx_embedded_rk4(y, *dt, p, hi, lo);
-  }
-  double d = inflx_sub(hi[0], lo[0]);
-  double e2 = inflx_mul(d, d);
+// Row s of a trajectory: [y, t], element c at row[c * comp_stride].
+INFLX_FN void inflx_store_row(double* row, int64_t comp_stride, const double* y, double t) {
 #pragma unroll
-  for (int c = 1; c < INFLX_NY; ++c) {
-    d = inflx_sub(hi[c], lo[c]);
-    e2 = inflx_add(e2, inflx_mul(d, d));
-  }
-  const double err = sqrt(e2);
-  double q = 5.0;
-  if (err > 0.0) {
-    q = pow(inflx_mul(1.0 / (err > 1e-300 ? err : 1e-300), max_err), exponent);
-    q = q < 0.1 ? 0.1 : q;
-    q = q > 5.0 ? 5.0 : q;
-  }
-  if (!isfinite(err)) q = 0.1;
-  const bool accept =
-      (inflx_mul(err, inv_max_err) <= 1.1) || (*dt <= 1e-250) || !isfinite(*dt);
-  if (accept) {
-#pragma unroll
-    for (int c = 0; c < INFLX_NY; ++c) y[c] = hi[c];
-    *t = inflx_add(*t, *dt);
-  }
-  *dt = inflx_mul(*dt, q);
-  return accept;
+  for (int c = 0; c < INFLX_NY; ++c) row[c * comp_stride] = y[c];
+  row[INFLX_NY * comp_stride] = t;
 }
 
 // One whole trajectory: `steps` rows of [y, t] written to out, element c of
@@ -173,6 +176,8 @@ INFLX_FN void inflx_solve_trajectory(const double* x0, const double* xd0,
                                      double max_err, double inv_max_err,
                                      double* out, int64_t row_stride,
                                      int64_t comp_stride) {
+  const int stages = METHOD == INFLX_RKF45 ? 6 : 4;
+  const double exponent = 1.0 / (stages + 1);
   double y[INFLX_NY];
 #pragma unroll
   for (int a = 0; a < INFLX_NF; ++a) {
@@ -182,14 +187,55 @@ INFLX_FN void inflx_solve_trajectory(const double* x0, const double* xd0,
   y[2 * INFLX_NF] = f_eom_h(y, y + INFLX_NF, p);
   double dt = 1e-10;
   double t = 0.0;
-  for (int64_t s = 0; s < steps; ++s) {
-    if (s > 0) {
-      while (!inflx_attempt<METHOD>(y, &dt, &t, p, max_err, inv_max_err)) {
-      }
+  double k0[INFLX_NY];
+  inflx_slope(y, p, k0);
+  inflx_store_row(out, comp_stride, y, t);
+  for (int64_t s = 1; s < steps;) {
+    double hi[INFLX_NY], lo[INFLX_NY], k0_next[INFLX_NY];
+    if (METHOD == INFLX_RKF45) {
+      inflx_embedded_rkf45(y, k0, dt, p, hi, lo);
+    } else {
+      inflx_embedded_rk4(y, k0, dt, p, hi, lo);
     }
-    double* row = out + s * row_stride;
+    double d = inflx_sub(hi[0], lo[0]);
+    double e2 = inflx_mul(d, d);
 #pragma unroll
-    for (int c = 0; c < INFLX_NY; ++c) row[c * comp_stride] = y[c];
-    row[INFLX_NY * comp_stride] = t;
+    for (int c = 1; c < INFLX_NY; ++c) {
+      d = inflx_sub(hi[c], lo[c]);
+      e2 = inflx_add(e2, inflx_mul(d, d));
+    }
+    const double err = sqrt(e2);
+    INFLX_STAMP(INFLX_PART_NORM, err);
+    // the next attempt's first stage if this one is accepted, ahead of the
+    // controller (neither waits for the other)
+    inflx_slope(hi, p, k0_next);
+    INFLX_STAMP(INFLX_PART_DERIV, k0_next[INFLX_NY - 1]);
+    // q without a branch (the same value where err = 0 or is not finite
+    // as with the branches of the step control above)
+    const double ratio = inflx_mul(1.0 / (err > 1e-300 ? err : 1e-300), max_err);
+    INFLX_STAMP(INFLX_PART_RECIP, ratio);
+    double q = pow(ratio, exponent);
+    q = q < 0.1 ? 0.1 : q;
+    q = q > 5.0 ? 5.0 : q;
+    q = err > 0.0 ? q : 5.0;
+    q = isfinite(err) ? q : 0.1;
+    INFLX_STAMP(INFLX_PART_POW, q);
+    const bool accept =
+        (inflx_mul(err, inv_max_err) <= 1.1) || (dt <= 1e-250) || !isfinite(dt);
+    if (accept) {
+#pragma unroll
+      for (int c = 0; c < INFLX_NY; ++c) {
+        y[c] = hi[c];
+        k0[c] = k0_next[c];
+      }
+      t = inflx_add(t, dt);
+    }
+    dt = inflx_mul(dt, q);
+    INFLX_STAMP(INFLX_PART_ACCEPT, dt);
+    if (accept) {
+      inflx_store_row(out + s * row_stride, comp_stride, y, t);
+      ++s;
+      INFLX_STAMP(INFLX_PART_STORE, t);
+    }
   }
 }

@@ -11,7 +11,11 @@ parameters), in one of three precisions:
     f_grad(x, p, out)   out[0..1] = ∂_0 V, ∂_1 V
 
 ``f_hesse`` and ``f_grad`` write every output of their lowered function at
-once, so the outputs share its CSE work.
+once, so the outputs share its CSE work.  Each is also emitted in three
+stages for the grid kernels (:func:`_emit_grid_fn`): ``<f>_row`` (what reads
+only ``x[0]`` and ``p``), ``<f>_col`` (``x[1]`` and ``p``) and
+``<f>_point``, which reads their values; :func:`grid_stage_ops` counts each
+stage's operations.
 
 * ``"f64"`` (kernels B1, B5a): ``double`` coordinates, parameters and
   values;
@@ -40,15 +44,18 @@ background solver needs, with the signature ``(const double* x, const
 double* xd, const double* p)`` (``xd[i]`` the field velocities), and
 ``#define INFLX_NF n``:
 
-    f_eom_<a>   the EoM term of field a < n (Γ^a_bc χ^b χ^c + g^ab ∂_b V)
-    f_eom_h     the Hubble parameter from the Friedmann constraint
-    f_eom_hdot  Ḣ = −½ G_ab χ^a χ^b
+    f_eom_h            the Hubble parameter from the Friedmann constraint
+    inflx_deriv(.., out)  out[0..n-1] the velocities χ^a, out[n..2n-1] the
+                       EoM terms (Γ^a_bc χ^b χ^c + g^ab ∂_b V), out[2n]
+                       Ḣ = −½ G_ab χ^a χ^b, from one body
 
 Each body is translated from the model's torch lowering
 (:mod:`inflatox_torch.lowering.torch_lowering`) through Python's ``ast``:
 the same operations, in the same order, fully parenthesised — integer powers
 through ``inflx_powi`` (the lowering's ``_ipow``), the same CSE locals when
-the model was compiled with ``cse=True``.  Each operation rounds once, as
+the model was compiled with ``cse=True``; the staged functions and the
+solver's are hash-consed (:class:`_Dag`), which names repeated operations
+once and changes none.  Each operation rounds once, as
 the corresponding torch kernel does, so the kernels agree with their plain
 PyTorch versions to the last bit wherever both use the same libm (on the
 card: CUDA's).  The headers keep FMA contraction out differently (see
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import ast
 import math
+import re
 from dataclasses import dataclass, field
 from string import Template
 
@@ -76,7 +84,7 @@ import numpy as np
 from ..ops.cuda_kernels import PRECISIONS
 from .dd_lowering import DEMOTED, dd_tree
 
-__all__ = ["generate_header", "generate_solver_header"]
+__all__ = ["generate_header", "generate_solver_header", "grid_stage_ops"]
 
 #: torch functions of the lowered source → C functions
 _C_FUNCS = {
@@ -148,16 +156,43 @@ def _is_scalar(node, scalars) -> bool:
 @dataclass
 class _Ctx:
     """How to translate: ``rn`` writes sums and products as ``inflx_*``
-    calls; ``real`` is ``"double"`` or ``"float"``; ``values`` holds the
-    Python values of the scalar CSE locals (used in float mode)."""
+    calls; ``real`` is ``"double"`` or ``"float"``; ``dd`` translates a
+    tree rewritten by :func:`dd_tree` into double-double; ``values`` holds
+    the Python values of the scalar CSE locals (used in float mode);
+    ``dag``, when set, hash-conses every operation into it
+    (:meth:`sub`), and ``names`` maps each CSE local to its value there."""
 
     rn: bool = False
     real: str = "double"
+    dd: bool = False
+    fast_div: bool = False
     scalars: set = field(default_factory=set)
     values: dict = field(default_factory=dict)
+    dag: "_Dag | None" = None
+    names: dict = field(default_factory=dict)
 
     def literal(self, value) -> str:
         return _float(value) if self.real == "float" else _double(value)
+
+    def divide(self, left: str, right: str) -> str:
+        """A division with a tensor divisor: the operator, or with
+        ``fast_div`` the solver's branch-free ``inflx_div_fast``, which
+        clears the local ``ok`` outside its range."""
+        if self.fast_div:
+            return f"inflx_div_fast({left}, {right}, &ok)"
+        return f"({left} / {right})"
+
+    def sub(self, node) -> str:
+        """C text of a child node: its whole expression, or with a dag the
+        name of its node there (leaves and constants stay inline)."""
+        if self.dag is None:
+            return _c_dd(node, self) if self.dd else _c(node, self)
+        if isinstance(node, ast.Name) and node.id in self.names:
+            return self.names[node.id]
+        text = _c_dd(node, self) if self.dd else _c(node, self)
+        if _is_leaf(node, self):
+            return text
+        return self.dag.intern(text, _head_ops(node, self))
 
 
 def _binop(op, left, right, rn) -> str:
@@ -189,20 +224,20 @@ def _c(node, ctx: _Ctx) -> str:
             return ctx.literal(value)
     one = ctx.literal(1.0)
     if isinstance(node, ast.BinOp) and type(node.op) in (*_BINOPS, ast.Div):
-        left, right = _c(node.left, ctx), _c(node.right, ctx)
+        left, right = ctx.sub(node.left), ctx.sub(node.right)
         if isinstance(node.op, ast.Div):
             lscalar = _is_scalar(node.left, ctx.scalars)
             rscalar = _is_scalar(node.right, ctx.scalars)
             if lscalar and not rscalar:
-                return _binop(ast.Mult, f"({one} / {right})", left, ctx.rn)
+                return _binop(ast.Mult, ctx.divide(one, right), left, ctx.rn)
             if rscalar and not lscalar:
                 return _binop(ast.Mult, left, f"({one} / {right})", ctx.rn)
-            return f"({left} / {right})"
+            return f"({left} / {right})" if lscalar else ctx.divide(left, right)
         return _binop(type(node.op), left, right, ctx.rn)
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
-        return f"(-{_c(node.operand, ctx)})"
+        return f"(-{ctx.sub(node.operand)})"
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
-        return _c(node.operand, ctx)
+        return ctx.sub(node.operand)
     if isinstance(node, ast.Constant) and isinstance(node.value, (int, float)):
         return ctx.literal(node.value)
     if isinstance(node, ast.Name):
@@ -216,17 +251,19 @@ def _c(node, ctx: _Ctx) -> str:
         func, args = node.func, node.args
         if isinstance(func, ast.Name) and func.id == "_ipow" and len(args) == 2:
             n = _int_const(args[1])
+            if n is not None and n < 0 and ctx.fast_div:  # 1 / b**|n|, as inflx_powi
+                return ctx.divide(one, f"inflx_powi<{-n}>({ctx.sub(args[0])})")
             if n is not None:
-                return f"inflx_powi({_c(args[0], ctx)}, {n})"
+                return f"inflx_powi<{n}>({ctx.sub(args[0])})"
         if (isinstance(func, ast.Name) and func.id == "float" and len(args) == 1
                 and isinstance(args[0], ast.Constant)):
             return ctx.literal(float(args[0].value))  # float('inf') / float('nan')
         if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
                 and func.value.id == "torch"):
             if func.attr == "tensor" and args:  # a literal for Max/Min/atan2
-                return _c(args[0], ctx)
+                return ctx.sub(args[0])
             if func.attr in _C_FUNCS:
-                inner = ", ".join(_c(a, ctx) for a in args)
+                inner = ", ".join(ctx.sub(a) for a in args)
                 return f"{_C_FUNCS[func.attr]}({inner})"
     raise NotImplementedError(
         f"no CUDA translation for {ast.unparse(node)!r} of a lowered model "
@@ -234,15 +271,15 @@ def _c(node, ctx: _Ctx) -> str:
     )
 
 
-def _c_dd(node) -> str:
+def _c_dd(node, ctx: _Ctx) -> str:
     """C expression, in double-double, for one node of a lowered function
     rewritten by :func:`inflatox_torch.lowering.dd_lowering.dd_tree`."""
     if isinstance(node, ast.BinOp) and type(node.op) in _DD_BINOPS:
-        return f"{_DD_BINOPS[type(node.op)]}({_c_dd(node.left)}, {_c_dd(node.right)})"
+        return f"{_DD_BINOPS[type(node.op)]}({ctx.sub(node.left)}, {ctx.sub(node.right)})"
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
-        return f"dd_neg({_c_dd(node.operand)})"
+        return f"dd_neg({ctx.sub(node.operand)})"
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
-        return _c_dd(node.operand)
+        return ctx.sub(node.operand)
     if isinstance(node, ast.Name):
         return node.id  # a CSE local
     if isinstance(node, ast.Subscript) and isinstance(node.value, ast.Name):
@@ -257,13 +294,13 @@ def _c_dd(node) -> str:
         if isinstance(func, ast.Name) and func.id == "_ipow" and len(args) == 2:
             n = _int_const(args[1])
             if n is not None:
-                return f"dd_powi({_c_dd(args[0])}, {n})"
+                return f"dd_powi<{n}>({ctx.sub(args[0])})"
         if (isinstance(func, ast.Name) and func.id == "float" and len(args) == 1
                 and isinstance(args[0], ast.Constant)):
             return f"dd_c({_double(float(args[0].value))})"
         if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
                 and func.value.id == "torch"):
-            inner = [_c_dd(a) for a in args]
+            inner = [ctx.sub(a) for a in args]
             if func.attr == "tensor" and args:
                 return inner[0]
             if func.attr in _DD_FUNCS:
@@ -282,34 +319,118 @@ def _returned(stmt) -> list:
     return list(value.elts) if isinstance(value, ast.Tuple) else [value]
 
 
-def _function_body(lowered, ctx: _Ctx) -> tuple:
-    """(CSE lines, C expression of each returned output) of a lowered
-    function."""
-    (fn,) = ast.parse(lowered.source).body
+_REF = re.compile(r"\bv(\d+)\b")
+_SLOT = re.compile(r"\bx\[(\d+)\]")
+
+
+class _Dag:
+    """Hash-consed operations of lowered functions: one node per distinct C
+    expression over earlier nodes (``v<k>``), with leaves (coordinates,
+    parameters, literals and constant subexpressions) inline.  Equal text
+    is the same operations on the same operands in the same order, so a
+    node computes each value once, and every use of it gets the bits that
+    each of its copies in the lowered source would have."""
+
+    def __init__(self):
+        self.text, self.kids, self.slots, self.ops = [], [], [], []
+        self._index = {}
+
+    def intern(self, text: str, ops: dict) -> str:
+        k = self._index.get(text)
+        if k is None:
+            k = len(self.text)
+            kids = sorted({int(v) for v in _REF.findall(text)})
+            slots = set(_SLOT.findall(text)).union(*(self.slots[c] for c in kids))
+            self.text.append(text)
+            self.kids.append(kids)
+            self.slots.append(frozenset(slots))
+            self.ops.append(ops)
+            self._index[text] = k
+        return f"v{k}"
+
+    def closure(self, values) -> list:
+        """The nodes that the C texts ``values`` need, in order."""
+        need, stack = set(), [int(v) for t in values for v in _REF.findall(t)]
+        while stack:
+            k = stack.pop()
+            if k not in need:
+                need.add(k)
+                stack.extend(self.kids[k])
+        return sorted(need)
+
+
+def _is_leaf(node, ctx: _Ctx) -> bool:
+    """True for what a dag keeps inline: coordinates, parameters, CSE
+    locals, literals, constant f64/f32 subexpressions (the compiler folds
+    them) and wrappers that pass their argument through."""
+    if isinstance(node, (ast.Constant, ast.Subscript, ast.Name)):
+        return True
+    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
+        return True
+    if not ctx.dd and _is_scalar(node, ctx.scalars):
+        return True
+    if isinstance(node, ast.Call):
+        func = node.func
+        if isinstance(func, ast.Name) and func.id in ("float", "_c"):
+            return True
+        return isinstance(func, ast.Attribute) and func.attr == "tensor"
+    return False
+
+
+def _head_ops(node, ctx: _Ctx) -> dict:
+    """The operations of a node itself, its children not counted, by name:
+    ``add`` (+ and −), ``mul``, ``div``, ``call`` (an f64/f32 library call)
+    and, in double-double, ``sqrt``, ``exp``, ``log`` and ``demoted`` (a
+    call made in f64); an integer power by its multiplies (and a division
+    when negative), a ``pow`` in double-double as ``log``, ``mul``, ``exp``;
+    a subexpression of constants only as nothing."""
+    if not any(isinstance(n, (ast.Name, ast.Subscript)) for n in ast.walk(node)):
+        return {}
+    if isinstance(node, ast.BinOp):
+        return {{ast.Add: "add", ast.Sub: "add", ast.Mult: "mul",
+                 ast.Div: "div"}[type(node.op)]: 1}
+    if isinstance(node, ast.Call):
+        func = node.func
+        if isinstance(func, ast.Name) and func.id == "_ipow":
+            n = _int_const(node.args[1])
+            mults = abs(n).bit_length() - 1 + bin(abs(n)).count("1") - 1
+            return {"mul": mults, "div": int(n < 0)}
+        if isinstance(func, ast.Attribute) and func.attr != "tensor":
+            if not ctx.dd:
+                return {"call": 1}
+            if func.attr == "pow":
+                return {"log": 1, "mul": 1, "exp": 1}
+            return {func.attr if func.attr in ("sqrt", "exp", "log") else "demoted": 1}
+    return {}
+
+
+def _translate(lowered, ctx: _Ctx, ctype: str = "") -> tuple:
+    """(C lines, C text of each returned output) of a lowered function.
+    With ``ctx.dag`` every operation is hash-consed into it and there are no
+    lines (an output is a node name or a leaf); without, each CSE local is
+    one line ``const <ctype> <local> = <its whole expression>;``, as the
+    lowering wrote it."""
+    fn = dd_tree(lowered) if ctx.dd else ast.parse(lowered.source).body[0]
+    ctx.names, ctx.scalars, ctx.values = {}, set(), {}  # CSE locals are per function
     lines = []
     for stmt in fn.body:
         if isinstance(stmt, ast.Assign):
             (target,) = stmt.targets
-            if _is_scalar(stmt.value, ctx.scalars):
+            if not ctx.dd and _is_scalar(stmt.value, ctx.scalars):
                 ctx.scalars.add(target.id)
                 ctx.values[target.id] = _scalar_value(stmt.value, ctx.values)
-            lines.append(f"  const {ctx.real} {target.id} = {_c(stmt.value, ctx)};\n")
+            value = ctx.sub(stmt.value)
+            if ctx.dag is None:
+                lines.append(f"  const {ctype} {target.id} = {value};\n")
+            else:
+                ctx.names[target.id] = value
         elif isinstance(stmt, ast.Return):
-            return lines, [_c(v, ctx) for v in _returned(stmt)]
+            return "".join(lines), [ctx.sub(v) for v in _returned(stmt)]
     raise ValueError(f"lowered function {lowered.name} has no return")
 
 
-def _dd_function_body(lowered) -> tuple:
-    """The same in double-double, each output demoted to f64."""
-    fn = dd_tree(lowered)
-    lines = []
-    for stmt in fn.body:
-        if isinstance(stmt, ast.Assign):
-            (target,) = stmt.targets
-            lines.append(f"  const dd {target.id} = {_c_dd(stmt.value)};\n")
-        elif isinstance(stmt, ast.Return):
-            return lines, [f"dd_to_f64({_c_dd(v)})" for v in _returned(stmt)]
-    raise ValueError(f"lowered function {lowered.name} has no return")
+def _lines(dag: _Dag, nodes, ctype: str) -> str:
+    return "".join(f"  const {ctype} v{k} = {dag.text[k]};\n" for k in nodes)
 
 
 _PRELUDE = Template("""\
@@ -349,24 +470,35 @@ $include
 #define M_SQRT2 1.41421356237309504880
 #endif
 
-// b**n by repeated squaring: the torch lowering's _ipow, product for product
-template <typename T>
-INFLX_FN T inflx_powi(T b, int n) {
-  const bool negative = n < 0;
-  if (negative) n = -n;
-  if (n == 0) return T(1);
-  T acc = T(0);
-  bool have = false;
-  for (;;) {
-    if (n & 1) {
-      acc = have ? $acc_b : b;
-      have = true;
+// b**N by repeated squaring: the torch lowering's _ipow, product for product
+// (from the lowest set bit of N, each bit's square times the product so far,
+// b squared between bits), unrolled at compile time; 1/b**|N| for N < 0.  A
+// loop over the bits of a run-time n stayed a loop in nvcc's code, its
+// branches cutting each model function into blocks that did not overlap.
+template <int N, bool HAVE, typename T>
+INFLX_FN T inflx_powi_bits(T acc, T b) {
+  if constexpr ((N & 1) != 0) {
+    if constexpr (HAVE) {
+      acc = $acc_b;
+    } else {
+      acc = b;
     }
-    n >>= 1;
-    if (!n) break;
-    b = $b_b;
   }
-  return negative ? T(1) / acc : acc;
+  if constexpr ((N >> 1) == 0) {
+    return acc;
+  } else {
+    return inflx_powi_bits<(N >> 1), (HAVE || (N & 1) != 0)>(acc, $b_b);
+  }
+}
+template <int N, typename T>
+INFLX_FN T inflx_powi(T b) {
+  if constexpr (N == 0) {
+    return T(1);
+  } else if constexpr (N < 0) {
+    return T(1) / inflx_powi_bits<-N, false>(b, b);
+  } else {
+    return inflx_powi_bits<N, false>(b, b);
+  }
 }
 // NaN-propagating, as torch.maximum/torch.minimum (C fmax/fmin drop NaN)
 template <typename T>
@@ -389,45 +521,157 @@ def _prelude(rn: bool = False, include: str = "") -> str:
     return _PRELUDE.substitute(include=include, acc_b="acc * b", b_b="b * b")
 
 
-def _emit_fn(name: str, lowered, output: int | None = None, rn: bool = False) -> str:
-    """One solver function (double): output ``output`` of the
-    lowered function (its only one when None); its parameters are those of
-    the lowered function's signature (``x``, ``xdot`` → ``xd``, ``args`` →
-    ``p``)."""
-    lines, rets = _function_body(lowered, _Ctx(rn=rn))
-    slots = [{"xdot": "xd", "args": "p"}.get(a, a) for a in lowered.signature]
-    params = ", ".join(f"const double* __restrict__ {s}" for s in slots)
-    unused = " ".join(f"(void){s};" for s in slots)
-    (ret,) = rets if output is None else (rets[output],)
+_SOLVER_SLOTS = ("const double* __restrict__ x, const double* __restrict__ xd, "
+                 "const double* __restrict__ p")
+
+
+def _emit_eom_h(artifact) -> str:
+    """``f_eom_h(x, xd, p)``: H from the Friedmann constraint."""
+    ctx = _Ctx(rn=True, dag=_Dag())
+    _, (ret,) = _translate(artifact.eom_h, ctx)
+    return (f"INFLX_FN double f_eom_h({_SOLVER_SLOTS}) {{\n  (void)x; (void)xd; (void)p;\n"
+            + _lines(ctx.dag, ctx.dag.closure([ret]), "double")
+            + f"  return {ret};\n}}\n\n")
+
+
+def _deriv_body(artifact, fast_div: bool) -> tuple:
+    """(C lines, outputs) of the merged derivative: the velocities, the n
+    EoM terms and Ḣ, hash-consed together."""
+    n = artifact.n_fields
+    ctx = _Ctx(rn=True, fast_div=fast_div, dag=_Dag())
+    outs = [f"xd[{a}]" for a in range(n)] + _translate(artifact.eom, ctx)[1]
+    outs += _translate(artifact.eom_hdot, ctx)[1]
+    if len(outs) != 2 * n + 1:
+        raise ValueError(f"the EoM of a {n}-field model has {len(outs) - n - 1} terms")
+    return _lines(ctx.dag, ctx.dag.closure(outs), "double"), outs
+
+
+def _emit_deriv(artifact) -> str:
+    """``inflx_deriv(x, xd, p, out)``: out[0..n-1] the velocities χ,
+    out[n..2n-1] the EoM terms, out[2n] Ḣ, from one body in which the EoM's
+    and Ḣ's identical subexpressions are computed once.  Its divisions are
+    ``inflx_div_fast`` (no branch, so independent work overlaps them); when
+    one of them is outside that function's range, the whole derivative is
+    computed again by ``inflx_deriv_exact``, with the operator, out of line
+    (``inflx_deriv_cold``, state and result passed by value, so that
+    neither the fallback's code nor its divisions sit in the hot path)."""
+    exact, exact_outs = _deriv_body(artifact, fast_div=False)
+    fast, outs = _deriv_body(artifact, fast_div=True)
+    head = (f"({_SOLVER_SLOTS},\n"
+            "                        double* __restrict__ out) {\n  (void)x; (void)xd; (void)p;\n")
     return (
-        f"INFLX_FN double {name}({params}) {{\n"
-        f"  {unused}\n"
-        + "".join(lines)
-        + f"  return {ret};\n}}\n\n"
+        "INFLX_FN void inflx_deriv_exact" + head + exact
+        + "".join(f"  out[{k}] = {o};\n" for k, o in enumerate(exact_outs)) + "}\n\n"
+        + _COLD
+        + "INFLX_FN void inflx_deriv" + head + "  bool ok = true;\n" + fast
+        + "  if (ok) {\n" + "".join(f"    out[{k}] = {o};\n" for k, o in enumerate(outs))
+        + "  } else {\n    inflx_deriv_cold_into(x, xd, p, out);\n  }\n}\n"
     )
 
 
+_COLD = """\
+struct inflx_state { double x[INFLX_NF], xd[INFLX_NF]; };
+struct inflx_slope_t { double out[2 * INFLX_NF + 1]; };
+INFLX_COLD inflx_slope_t inflx_deriv_cold(const inflx_state s, const double* __restrict__ p) {
+  inflx_slope_t r;
+  inflx_deriv_exact(s.x, s.xd, p, r.out);
+  return r;
+}
+INFLX_FN void inflx_deriv_cold_into(const double* x, const double* xd, const double* p,
+                                    double* out) {
+  inflx_state s;
+  for (int a = 0; a < INFLX_NF; ++a) {
+    s.x[a] = x[a];
+    s.xd[a] = xd[a];
+  }
+  const inflx_slope_t r = inflx_deriv_cold(s, p);
+  for (int k = 0; k < 2 * INFLX_NF + 1; ++k) out[k] = r.out[k];
+}
+
+"""
+
+
+@dataclass
+class _Stages:
+    """A grid function's nodes by what they read: ``row`` (the row stage:
+    x[0] and p, or p alone), ``col`` (x[1] and p, or p alone) and ``point``
+    (both coordinates); ``row_out`` and ``col_out``, the row and column
+    values the point stage reads."""
+
+    row: list
+    col: list
+    point: list
+    row_out: list
+    col_out: list
+
+
+def _stages(dag: _Dag, outputs) -> _Stages:
+    point = [k for k in dag.closure(outputs) if dag.slots[k] >= {"0", "1"}]
+    read = {int(v) for t in outputs for v in _REF.findall(t)}.union(
+        *(dag.kids[k] for k in point))
+    frontier = sorted(read.difference(point))
+    row_out = [k for k in frontier if "0" in dag.slots[k]]
+    col_out = [k for k in frontier if "0" not in dag.slots[k]]
+    return _Stages(dag.closure([f"v{k}" for k in row_out]),
+                   dag.closure([f"v{k}" for k in col_out]), point, row_out, col_out)
+
+
+def _grid_fn(lowered, n_out, precision):
+    """(dag, outputs, stages) of one grid-scan model function."""
+    ctx = _Ctx(real="float" if precision == "f32" else "double", dd=precision == "dd",
+               dag=_Dag())
+    _, outs = _translate(lowered, ctx)
+    if n_out is not None and len(outs) != n_out:
+        raise ValueError(f"{lowered.name} returns {len(outs)} values, not {n_out}")
+    if n_out is None and len(outs) != 1:
+        raise ValueError(f"{lowered.name} returns {len(outs)} values, not one")
+    return ctx.dag, outs, _stages(ctx.dag, outs)
+
+
 def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> str:
-    """One grid-scan model function of ``x`` and ``p``: with ``n_out`` None
-    it returns the lowered function's one output, else it writes its
-    ``n_out`` outputs to ``out[0..n_out-1]``."""
-    if precision == "dd":
-        coord, real = "dd", "double"
-        lines, rets = _dd_function_body(lowered)
-    else:
-        coord = real = "float" if precision == "f32" else "double"
-        lines, rets = _function_body(lowered, _Ctx(real=real))
-    params = f"const {coord}* __restrict__ x, const {coord}* __restrict__ p"
+    """One grid-scan model function of ``x`` and ``p`` as three stages and
+    whole: ``<name>_row(x, p, r)`` writes the row values (``<NAME>_NR`` of
+    them) from x[0], ``<name>_col(x, p, c)`` the column values
+    (``<NAME>_NC``) from x[1], and ``<name>_point(x, p, r, c[, out])`` the
+    function from both; ``<name>(x, p[, out])`` is the function whole, one
+    line per CSE local of the lowering, for the point kernels, whose points
+    share nothing (nvcc merges their repeats itself; B5a and B5b ran 5-10 %
+    slower with the hash-consed nodes in their place, PERF.md).  With
+    ``n_out`` None the function returns the lowered function's one output,
+    else it writes its ``n_out`` outputs to ``out[0..n_out-1]``."""
+    dag, outs, st = _grid_fn(lowered, n_out, precision)
+    coord = "dd" if precision == "dd" else ("float" if precision == "f32" else "double")
+    real = "double" if precision == "dd" else coord
+    demote = (lambda o: f"dd_to_f64({o})") if precision == "dd" else (lambda o: o)
+    whole, whole_outs = _translate(lowered, _Ctx(real=real, dd=precision == "dd"), coord)
+    upper = name.upper()
+    xp = f"const {coord}* __restrict__ x, const {coord}* __restrict__ p"
+    rc = f"const {coord}* __restrict__ r, const {coord}* __restrict__ c"
+    reads = "".join(f"  const {coord} v{k} = r[{i}];\n" for i, k in enumerate(st.row_out))
+    reads += "".join(f"  const {coord} v{k} = c[{i}];\n" for i, k in enumerate(st.col_out))
+    def tail(values):
+        if n_out is None:
+            return f"  return {demote(values[0])};\n}}\n\n"
+        return "".join(f"  out[{k}] = {demote(v)};\n" for k, v in enumerate(values)) + "}\n\n"
+
     if n_out is None:
-        (ret,) = rets
-        head = f"INFLX_FN {real} {name}({params}) {{\n"
-        tail = f"  return {ret};\n}}\n\n"
+        point_head = f"INFLX_FN {real} {name}_point({xp}, {rc}) {{\n"
+        whole_head = f"INFLX_FN {real} {name}({xp}) {{\n"
     else:
-        if len(rets) != n_out:
-            raise ValueError(f"{lowered.name} returns {len(rets)} values, {name} writes {n_out}")
-        head = f"INFLX_FN void {name}({params}, {real}* __restrict__ out) {{\n"
-        tail = "".join(f"  out[{k}] = {r};\n" for k, r in enumerate(rets)) + "}\n\n"
-    return head + "  (void)x; (void)p;\n" + "".join(lines) + tail
+        point_head = f"INFLX_FN void {name}_point({xp}, {rc}, {real}* __restrict__ out) {{\n"
+        whole_head = f"INFLX_FN void {name}({xp}, {real}* __restrict__ out) {{\n"
+    return (
+        f"#define {upper}_NR {len(st.row_out)}\n#define {upper}_NC {len(st.col_out)}\n"
+        f"INFLX_FN void {name}_row({xp}, {coord}* __restrict__ r) {{\n  (void)x; (void)p;\n"
+        + _lines(dag, st.row, coord)
+        + "".join(f"  r[{i}] = v{k};\n" for i, k in enumerate(st.row_out)) + "}\n"
+        f"INFLX_FN void {name}_col({xp}, {coord}* __restrict__ c) {{\n  (void)x; (void)p;\n"
+        + _lines(dag, st.col, coord)
+        + "".join(f"  c[{i}] = v{k};\n" for i, k in enumerate(st.col_out)) + "}\n"
+        + point_head + "  (void)x; (void)p; (void)r; (void)c;\n" + reads
+        + _lines(dag, st.point, coord) + tail(outs)
+        + whole_head + "  (void)x; (void)p;\n" + whole + tail(whole_outs)
+    )
 
 
 #: (header function, lowered function attribute, outputs written to out[],
@@ -457,21 +701,33 @@ def generate_header(artifact, precision: str = "f64") -> str:
     )
 
 
+def grid_stage_ops(artifact, precision: str = "f64") -> dict:
+    """Operations of each grid-scan model function's stages, as the header
+    computes them: ``{header function: {"row": ops, "col": ops, "point":
+    ops}}``, each ops a dict of counts by name (:func:`_head_ops`; in
+    double-double each output's demotion to f64 as one ``f64``)."""
+    counts = {}
+    for name, attr, n_out in _GRID_FUNCTIONS:
+        dag, outs, st = _grid_fn(getattr(artifact, attr), n_out, precision)
+        stage = {}
+        for key, nodes in (("row", st.row), ("col", st.col), ("point", st.point)):
+            total = {}
+            for k in nodes:
+                for op, v in dag.ops[k].items():
+                    total[op] = total.get(op, 0) + v
+            stage[key] = total
+        if precision == "dd":
+            stage["point"]["f64"] = len(outs)
+        counts[name] = stage
+    return counts
+
+
 def generate_solver_header(artifact) -> str:
     """Emit the background-solver header for a :class:`CompiledModel` with
-    any number of fields: the EoM functions and ``inflx_eom``, which fills
-    all n EoM terms at once."""
-    n = artifact.n_fields
-    calls = "".join(f"  out[{a}] = f_eom_{a}(x, xd, p);\n" for a in range(n))
+    any number of fields: ``f_eom_h`` and ``inflx_deriv``."""
     return (
         _prelude(rn=True)
-        + f"#define INFLX_NF {n}\n\n"
-        + "".join(_emit_fn(f"f_eom_{a}", artifact.eom, a, rn=True) for a in range(n))
-        + _emit_fn("f_eom_h", artifact.eom_h, rn=True)
-        + _emit_fn("f_eom_hdot", artifact.eom_hdot, rn=True)
-        + "INFLX_FN void inflx_eom(const double* __restrict__ x, "
-        "const double* __restrict__ xd,\n"
-        "                         const double* __restrict__ p, double* out) {\n"
-        + calls
-        + "}\n"
+        + f"#define INFLX_NF {artifact.n_fields}\n\n"
+        + _emit_eom_h(artifact)
+        + _emit_deriv(artifact)
     )

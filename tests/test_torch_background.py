@@ -430,7 +430,8 @@ def test_ot_needs_two_fields(models):
 def test_cuda_solver_header_covers_any_field_count(models):
     _, art, _ = models["three"]
     src = art.cuda_solver_source()
-    assert "#define INFLX_NF 3" in src and "f_eom_2(" in src
+    # one merged derivative: 3 velocities, 3 EoM terms and Ḣ
+    assert "#define INFLX_NF 3" in src and "void inflx_deriv(" in src and "out[6] = " in src
     assert art.cuda_solver_source() is src
     with pytest.raises(ValueError, match="2-field"):
         art.cuda_source()

@@ -95,11 +95,25 @@ def test_kernel_matches_plain_torch_angular(angular, cuda_device):
 
 
 def test_kernel_rows_beyond_one_grid_dimension(doc, cuda_device):
-    """N0 above the 65535 blocks of gridDim.y: rows are strided in-kernel."""
+    """N0 above 65535 blocks of gridDim.y at 32 rows a block (the most a
+    block takes): row blocks are strided in-kernel."""
     art, args = doc
-    got = scan_cuda(art, "epsilon_v", args, DOC_EXTENT, (70_001, 3), cuda_device)
-    want = scan_torch(art, "epsilon_v", args, DOC_EXTENT, (70_001, 3), cuda_device)
+    shape = (65535 * 32 + 17, 3)
+    got = scan_cuda(art, "epsilon_v", args, DOC_EXTENT, shape, cuda_device)
+    want = scan_torch(art, "epsilon_v", args, DOC_EXTENT, shape, cuda_device)
     assert_maps_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (17, 257), (33, 511), (5, 1000)])
+@pytest.mark.parametrize("precision", ["f64", "f32", "dd"])
+def test_staged_kernel_at_ragged_shapes(doc, cuda_device, shape, precision):
+    """Grids whose rows and columns are not whole blocks: the last row
+    block's row stage and the last column block's idle threads."""
+    art, args = doc
+    for kind in ("complete_analysis", "hesse", "gradient"):
+        got = scan_cuda(art, kind, args, DOC_EXTENT, shape, cuda_device, precision)
+        want = scan_torch(art, kind, args, DOC_EXTENT, shape, cuda_device, precision)
+        assert_maps_close(got, want, 1e-5 if precision == "f32" else 5e-10)
 
 
 def test_default_engine_runs_the_kernel(doc, cuda_device):
