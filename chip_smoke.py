@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, the CUDA toolkit (nvcc) and this checkout; builds the
-kernels (B1 and B5: the grid-scan library; B6: the solver library) from
+kernels (B1 and B5: the grid-scan library; B6: the solver library; B8 alone:
+the special-function library) from
 ``inflatox_torch/csrc`` into ``build/inflatox_torch_kernels/`` on first use,
 one nvcc per library, all started together.  Phases, each of which either
 passes or ends the script with a nonzero exit:
@@ -79,6 +80,40 @@ passes or ends the script with a nonzero exit:
     ``parameter_sweep`` on the host clock: with and without a reduction,
     checkpointed or not.  (``scripts/probe_sweep_pipeline.py`` compares the
     chunk loop's orders of copy and write.)
+
+22. kernel B8 (``csrc/special.cuh``, the special functions) alone, through
+    ``csrc/special_eval.cu``: each of the 15 functions over 2^24 arguments
+    spanning its range, at integer orders 0, 1, 5 and −2, fractional
+    0.3, 2.5, 12.7, 29.9, −12.7, ±30.5 and 35.3 (NaN), spherical 0-8, 2.3 and
+    2.5, and tests/test_special.py's hypergeometric parameters; in f64
+    against the plain version on the card (``lowering/special.py``: rtol
+    5e-10, identical NaN/±inf masks, the bit-identical share reported) and
+    in f32 (within 1e-5 of the largest value's 1e-3, identical masks), both
+    on the first 2^21 arguments (the plain Steed routes run some 9,000 torch
+    operations over the vector); 64 points per case against 40-digit
+    mpmath at tests/test_special.py's tolerances; each timed beside the
+    torch.special call that computes it, where there is one;
+23. S1 (bench cfg4b's 1F1 + 2F1 + erf·Γ potential at 1024² on its extent,
+    nothing cut), S2 (a·J₀(x)² + K₁(x+2)·y² + 2) and S3 (a·J_{3/10}(x)² +
+    K_{5/2}(x+2)·y² + 2) at 1024²: ``complete_analysis`` in f64 (kernel B1)
+    and f32 (B2), each launch counted as one that ran B8, against the plain
+    version on the card (f64 rtol 5e-10; f32 as phase 13) and, for rows 0-63,
+    on the CPU (rtol 1e-6: the CPU's lgamma, erf, exp, log, sin and cos part
+    from CUDA's in the last bit, the maps amplify it), and V, the Hesse and
+    |∇V|² at 64 points against 40-digit mpmath (1e-11); S1's
+    ``calc_V_array``/``calc_H_array``; ``precision="dd"`` on S1 must raise,
+    naming the function;
+24. kernel B5a (whole model functions, B8 off the staged path): the four
+    on-trajectory kinds over 1,048,576 points of S1's window and of S3's;
+25. kernel B6 with B8 in its derivative: S2, RKF45, 4096 trajectories ×
+    2000 rows from initial fields spread over its extent, the first 20 rows
+    against the plain version on the card (rtol 1e-12) and trajectories
+    0-63 on the CPU (its derivative runs some 6,000 torch operations: the
+    plain version is cut to those rows);
+26. S1's sweep over 8 values of a at 512², f64 (B7a) and f32 (B7b), each set
+    bit for bit its single scan;
+27. C9's Piecewise and sinc models at 1024² through B1, B2 and B4, each
+    against its plain version.
 
 Phase 11 takes the plain solver's time from phase 8's call instead of
 timing it twice more; it also prints the attribution of B6's time per
@@ -161,6 +196,24 @@ BEFORE_MS = {"grid_scan_b1": 0.3874, "points_scan_b5": 0.1934, "solver_b6_rkf": 
           "grid_scan_b4_dd_egno_complete_analysis_2048": 8.366,
           "points_scan_b5b_dd_egno_1048576": 1.960, "grid_scan_b7a_sweep_32x512": 0.1961,
           "grid_scan_b7b_f32_sweep_32x512": 0.1170, "grid_scan_b7d_dd_egno_sweep_8x512": 2.880}
+# phases 22-27: kernel B8 (the special functions) alone and on the main paths
+SF_N = 1 << 24  # arguments per function in phase 22
+SF_PLAIN_N = 1 << 21  # the prefix held against the plain version (its Steed
+# routes run ~9,000 torch operations over the whole vector)
+SF_COUNT_N = 1 << 14  # arguments whose routes' operations are counted for the bound
+SF_MP_POINTS = 64  # points per function and per model against 40-digit mpmath
+SPECIAL_N = 1024  # S1-S3 grids (bench cfg4b's 1024², nothing cut)
+S1_EXTENT = (0.3, 2.0, 0.2, 1.2)  # bench cfg4b
+S2_EXTENT = (0.5, 3.0, 0.2, 1.5)  # tests/test_df32_special.py's Bessel models
+SPECIAL_ARGS = [2.0]
+SPECIAL_POINTS = 1 << 20  # B5a over S1's and S3's windows
+SPECIAL_SOLVE_ROWS = 20  # rows of S2's solves held against the plain version
+PIECEWISE_EXTENT = (-1.5, 1.5, -1.0, 1.1)
+# the special-function models' maps against their plain version on the CPU:
+# the CPU's lgamma, erf, exp, log, sin and cos (torch's own) part from CUDA's
+# in the last bit now and then, and the maps' cancellations amplify it
+CPU_RTOL_SPECIAL = 1e-6
+SPECIAL_SWEEP_SETS = 8
 HERE = os.path.dirname(os.path.abspath(__file__))
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
 
@@ -322,8 +375,15 @@ def _node_ops(node):
             mults = exponent.bit_length() - 1 + bin(exponent).count("1") - 1
             negative = ast.literal_eval(node.args[1]) < 0
             return _node_ops(node.args[0]) + mults + int(negative)
+        if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
+                and func.value.id == "_special"):  # B8's own: special_ops, on the data
+            return sum(_node_ops(a) for a in node.args)
+        if isinstance(func, ast.Attribute) and func.attr == "where":
+            return sum(_node_ops(a) for a in node.args)
         return int(not (isinstance(func, ast.Name) and func.id == "float")) + sum(
             _node_ops(a) for a in node.args)
+    if isinstance(node, ast.Compare):
+        return _node_ops(node.left) + sum(_node_ops(c) for c in node.comparators)
     return 0
 
 
@@ -343,11 +403,53 @@ def lowered_ops(lowered, outputs=None):
     return total
 
 
-def point_ops(art):
+def point_ops(art, special=0.0):
     """Operations per point of the complete-analysis kind (B1, B5): V, the
-    Hesse (f_hesse computes all four components), |∇V|² and the tail."""
+    Hesse (f_hesse computes all four components), |∇V|² and the tail; and
+    ``special``, kernel B8's operations per point on the run's points
+    (:func:`special_ops`), which a model that calls special functions must
+    give."""
+    check(special > 0 or not art.uses_special_functions,
+          "point_ops: a special-function model needs its B8 operations")
     return (lowered_ops(art.potential) + lowered_ops(art._hesse)
-            + lowered_ops(art.grad_square) + TAIL_OPS)
+            + lowered_ops(art.grad_square) + TAIL_OPS + special)
+
+
+def special_ops(fns, *inputs):
+    """Kernel B8's operations that the lowered functions ``fns`` need at
+    each point of ``inputs`` (their arguments: coordinates, then velocities
+    or parameters), summed over ``fns``: for each special call only the
+    route its argument takes and the loop steps before it converges
+    (``special.route_operations``).  Returns an int64 tensor of the
+    points' shape."""
+    from inflatox_torch.lowering.special import route_operations, suppress_domain_warnings
+
+    total = 0
+    with suppress_domain_warnings():
+        for fn in fns:
+            total = total + route_operations(fn, *inputs)[1]
+    return total
+
+
+def grid_special_ops(art, kind, args, extent, n, device, precision):
+    """Kernel B8's operations in one n × n grid launch of ``kind`` on its
+    own coordinates.  Every special call of these models sits in a row or a
+    column stage (checked), so the calls at the diagonal points (x0_i, x1_i)
+    are each row's and each column's once."""
+    import torch
+
+    from inflatox_torch.lowering.cuda_codegen import _GRID_FUNCTIONS, grid_stage_ops
+
+    counts = grid_stage_ops(art, precision)
+    check(not any(counts[f]["point"].get("special") for f in KIND_FNS[kind]),
+          "grid_special_ops: a special call in the point stage")
+    dtype = torch.float32 if precision == "f32" else torch.float64
+    x0a, x0b, x1a, x1b = extent
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    xs = [(x0a + i * ((x0b - x0a) / n)).to(dtype), (x1a + i * ((x1b - x1a) / n)).to(dtype)]
+    p = torch.tensor(args, dtype=dtype, device=device)
+    attrs = dict((name, attr) for name, attr, _ in _GRID_FUNCTIONS)
+    return int(special_ops([getattr(art, attrs[f]) for f in KIND_FNS[kind]], xs, p).sum())
 
 
 def _dd_node_ops(node):
@@ -409,32 +511,43 @@ KIND_FNS = {"complete_analysis": ("f_V", "f_hesse", "f_gsq"),
             "consistency_rapidturn": ("f_V", "f_hesse")}
 
 
-def staged_ops(art, kind, precision, n0, n1, sets=1):
+def staged_ops(art, kind, precision, n0, n1, sets=1, special=None):
     """f64 operations of the staged grid kernel's work for one launch
     (inflatox_torch.lowering.cuda_codegen.grid_stage_ops): point stages at
     every point, row stages once per row and set, column stages once per
     column and set, then the tail at every point; in double-double each
-    operation by DD_OPS."""
+    operation by DD_OPS.  ``special``: kernel B8's operations in the launch
+    on its coordinates (:func:`grid_special_ops`), which a model that calls
+    special functions must give."""
     from inflatox_torch.lowering.cuda_codegen import grid_stage_ops
 
     def weigh(ops):
-        return sum((DD_OPS.get(k, 1) if precision == "dd" else 1) * v for k, v in ops.items())
+        return sum((DD_OPS.get(k, 1) if precision == "dd" else 1) * v for k, v in ops.items()
+                   if k != "special")
 
     counts = grid_stage_ops(art, precision)
-    total = sum(weigh(counts[f]["point"]) * n0 * n1 * sets
-                + weigh(counts[f]["row"]) * n0 * sets + weigh(counts[f]["col"]) * n1 * sets
-                for f in KIND_FNS[kind])
+    calls = sum(c.get("special", 0) for f in KIND_FNS[kind] for c in counts[f].values())
+    check((calls > 0) == (special is not None),
+          f"staged_ops: {calls} special calls, B8 operations {special}")
+    total = (special or 0) + sum(
+        weigh(counts[f]["point"]) * n0 * n1 * sets + weigh(counts[f]["row"]) * n0 * sets
+        + weigh(counts[f]["col"]) * n1 * sets for f in KIND_FNS[kind])
     tail = TAIL_OPS if kind == "complete_analysis" else RAPIDTURN_TAIL_OPS
     return total + tail * n0 * n1 * sets
 
 
-def attempt_ops(art, solver):
-    """Operations of one adaptive attempt of kernel B6 (csrc/solver.cuh)."""
+def attempt_ops(art, solver, special=0.0):
+    """Operations of one adaptive attempt of kernel B6 (csrc/solver.cuh);
+    ``special`` is kernel B8's operations per derivative on the solve's
+    states (:func:`special_ops`), which a model that calls special functions
+    must give."""
     from inflatox_torch.ops import cuda_solver as cs
 
+    check(special > 0 or not art.uses_special_functions,
+          "attempt_ops: a special-function model needs its B8 operations")
     n = art.n_fields
     ny = 2 * n + 1
-    deriv = lowered_ops(art.eom) + lowered_ops(art.eom_hdot) + 2 * n + 1
+    deriv = lowered_ops(art.eom) + lowered_ops(art.eom_hdot) + 2 * n + 1 + special
 
     def step(a, *bs):
         nonzero = int((a != 0).sum()) + sum(int((b != 0).sum()) for b in bs)
@@ -653,10 +766,11 @@ def adaptive_turns(kernel, plain):
     return in_turns(kernel, plain, n_kernel, n_plain, 0) + (n_kernel, n_plain)
 
 
-def points_and_check(al, art, args, pts, label):
+def points_and_check(al, art, args, pts, label, cpu_rtol=RTOL):
     """The four on-trajectory scans through ``GeneralisedAL``, counted,
     then kernel vs plain version on the card and, for the first 4096
-    points, on the CPU.  Returns (launches, max abs error)."""
+    points, on the CPU (at ``cpu_rtol``; masks always identical).  Returns
+    (launches, max abs error)."""
     import numpy as np
 
     from inflatox_torch.ops import cuda_kernels
@@ -681,7 +795,8 @@ def points_and_check(al, art, args, pts, label):
         rel, absolute, same = compare(got, scan_points_torch(art, kind, args, pts))
         worst = max(worst, absolute)
         cpu_rel, _, cpu_same = compare(got[:, :4096].cpu(),
-                                       scan_points_torch(art, kind, args, pts[:4096].cpu()))
+                                       scan_points_torch(art, kind, args, pts[:4096].cpu()),
+                                       cpu_rtol)
         print(f"{label} {kind}: kernel vs plain torch on the card: max_rel={rel:.3e} "
               f"max_abs={absolute:.3e} bit_identical={same:.6f}; first 4096 points vs "
               f"the CPU: max_rel={cpu_rel:.3e} bit_identical={cpu_same:.6f}")
@@ -850,6 +965,585 @@ def rehearse_kill_resume(art, device, card):
     return summary
 
 
+# ------------------------------------------------------------------------- #
+# phases 22-27: kernel B8, the special functions                             #
+# ------------------------------------------------------------------------- #
+
+DF32_SPECIAL = "inflatox_tpu/lowering/df32_special.py"
+#: B8's function → the line of the TPU's double-f32 function it replaces
+B8_REPLACES = {"hyp0f1": 105, "besselj": 810, "bessely": 892, "besseli": 945, "besselk": 1061,
+               "sph_jn": 1119, "sph_yn": 1186, "erf": 1275, "erfc": 1287, "lgamma": 1350,
+               "gamma": 1362, "polygamma": 1440, "hyp1f1": 1563, "hyp2f1": 1605,
+               "hyp2f0": 1640}
+
+
+def _mp_sph(fn):
+    import mpmath
+
+    return lambda nu: (lambda z: mpmath.sqrt(mpmath.pi / (2 * z)) * fn(nu + mpmath.mpf(1) / 2, z))
+
+
+def b8_cases():
+    """Phase 22's cases: (label, function, special_eval instance, parameters,
+    argument range, 40-digit mpmath reference or None (NaN expected), its
+    tolerance, its absolute floor and floor share of the largest value)."""
+    import mpmath
+
+    half = mpmath.mpf(1) / 2
+    cases = []
+    for fn, mp_fn, ints, fracs, rng_int, rng_frac, tol_int, tol_frac, floor in (
+            ("besselj", mpmath.besselj, (0, 1, 5, -2),
+             (0.3, 2.5, 12.7, 29.9, -12.7, 30.5, -30.5, 35.3), (0.05, 30.0), (0.05, 200.0),
+             1e-8, 1e-11, 1e-3),
+            ("bessely", mpmath.bessely, (0, 1, 5, -2),
+             (0.3, 2.5, 12.7, 29.9, -12.7, 30.5, -30.5, 35.3), (0.2, 40.0), (0.05, 200.0),
+             2e-11, 1e-11, 1e-3),
+            ("besseli", mpmath.besseli, (0, 1, 5, -2), (0.3, 2.5, 12.7, -12.7), (0.1, 15.0),
+             (0.1, 15.0), 1e-7, 1e-9, 0.0),
+            ("besselk", mpmath.besselk, (0, 1, 5, -2), (0.3, 2.5, 12.7, -12.7, 30.5, 35.3),
+             (0.1, 40.0), (0.1, 40.0), 1e-13, 1e-12, 0.0)):
+        for n in ints:
+            cases.append((f"{fn} n={n}", fn, f"{fn}_{'m' if n < 0 else ''}{abs(n)}", (),
+                          rng_int, (lambda z, n=n, f=mp_fn: f(n, z)), tol_int, 0.0, floor))
+        for nu in fracs:
+            mp = None if abs(nu) > 30.5 else (lambda z, nu=nu, f=mp_fn: f(mpmath.mpf(nu), z))
+            cases.append((f"{fn} ν={nu}", fn, f"{fn}_nu", (nu,), rng_frac, mp, tol_frac, 0.0,
+                          floor))
+    for fn, mp_fn, tol, floor in (("sph_jn", mpmath.besselj, 5e-13, 1e-9),
+                                  ("sph_yn", mpmath.bessely, 1e-10, 1e-9)):
+        for n in range(9):
+            cases.append((f"{fn} n={n}", fn, f"{fn}_{n}", (), (0.2, 30.0),
+                          (lambda z, n=n, f=mp_fn: mpmath.sqrt(mpmath.pi / (2 * z))
+                           * f(n + half, z)), tol, 0.0, floor))
+        # ν = 2.5 takes the integer-order J_3/Y_3 (J's Miller recurrence: 1e-8)
+        for nu, inst, tol_nu in ((2.3, f"{fn}_nu", 1e-11),
+                                 (2.5, f"{fn}_half3", 1e-8 if fn == "sph_jn" else 1e-11)):
+            cases.append((f"{fn} ν={nu}", fn, inst, (nu,) if inst.endswith("nu") else (),
+                          (0.5, 40.0), (lambda z, nu=nu, f=mp_fn: mpmath.sqrt(
+                              mpmath.pi / (2 * z)) * f(mpmath.mpf(nu) + half, z)),
+                          tol_nu, 0.0, 1e-3))
+    for b in (0.5, 2.5, 7.0):
+        cases.append((f"hyp0f1 b={b}", "hyp0f1", "hyp0f1", (b,), (-20.0, 20.0),
+                      (lambda z, b=b: mpmath.hyp0f1(b, z)), 1e-10, 0.0, 0.0))
+    for a, b in ((0.5, 1.5), (1.5, 2.5), (-1.5, 2.5), (3.5, 0.75)):
+        cases.append((f"hyp1f1 a={a} b={b}", "hyp1f1", "hyp1f1", (a, b), (-20.0, 20.0),
+                      (lambda z, a=a, b=b: mpmath.hyp1f1(a, b, z)), 5e-11, 1e-300, 0.0))
+    for a, b, c in ((0.5, 1.5, 2.5), (0.25, 0.75, 1.25), (1.0, 2.0, 3.5), (2.5, 0.5, 3.0)):
+        cases.append((f"hyp2f1 {a},{b};{c}", "hyp2f1", "hyp2f1", (a, b, c), (-0.95, 0.95),
+                      (lambda z, a=a, b=b, c=c: mpmath.hyp2f1(a, b, c, z)), 5e-11, 0.0, 0.0))
+    for a, b in ((0.5, 1.0), (1.5, 2.0)):
+        cases.append((f"hyp2f0 {a},{b}", "hyp2f0", "hyp2f0", (a, b), (-0.02, 0.02),
+                      (lambda z, a=a, b=b: mpmath.re(mpmath.hyp2f0(a, b, z))), 1e-12, 0.0, 0.0))
+    cases += [
+        ("erf", "erf", "erf", (), (-6.0, 6.0), mpmath.erf, 2e-13, 0.0, 1e-12),
+        ("erfc", "erfc", "erfc", (), (-6.0, 7.5), mpmath.erfc, 1e-12, 0.0, 0.0),
+        ("lgamma", "lgamma", "lgamma", (), (-7.95, 33.0),
+         lambda z: mpmath.log(abs(mpmath.gamma(z))), 1e-11, 1e-2, 0.0),
+        ("gamma", "gamma", "gamma", (), (-7.95, 33.0), mpmath.gamma, 2e-12, 0.0, 0.0),
+    ]
+    for n in range(4):
+        cases.append((f"polygamma n={n}", "polygamma", f"polygamma_{n}", (), (-7.95, 30.0),
+                      (lambda z, n=n: mpmath.polygamma(n, z)), 1e-12, 1e-2, 0.0))
+    return cases
+
+
+def torch_library():
+    """The one torch call that computes a phase-22 instance, where there is
+    one (a yardstick of speed, used nowhere in the port)."""
+    import torch
+
+    ts = torch.special
+    return {"besselj_0": ts.bessel_j0, "besselj_1": ts.bessel_j1, "bessely_0": ts.bessel_y0,
+            "bessely_1": ts.bessel_y1, "besseli_0": ts.modified_bessel_i0,
+            "besseli_1": ts.modified_bessel_i1, "besselk_0": ts.modified_bessel_k0,
+            "besselk_1": ts.modified_bessel_k1, "sph_jn_0": ts.spherical_bessel_j0,
+            "erf": ts.erf, "erfc": ts.erfc, "lgamma": torch.lgamma, "polygamma_0": ts.digamma,
+            "polygamma_1": lambda z: ts.polygamma(1, z)}
+
+
+def floored_error(got, want, frac, floor):
+    """max |got − want| / max(|want|, floor, frac · max|want|) over the
+    finite values of ``want``, in f64."""
+    import torch
+
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    if not fin.any():
+        return 0.0
+    scale = want[fin].abs().clamp_min(max(floor, frac * want[fin].abs().max().item()))
+    return ((got[fin] - want[fin]).abs() / scale).max().item()
+
+
+def b8_alone(device, card):
+    """Phase 22: kernel B8 alone over SF_N arguments per case, f64 and f32,
+    against its plain version on the card (the first SF_PLAIN_N), against
+    40-digit mpmath at SF_MP_POINTS points, timed beside the torch call that
+    computes the same function where there is one.  Returns the slowest f64
+    case's numbers for the kernel table."""
+    import mpmath
+    import numpy as np
+    import torch
+
+    from inflatox_torch.ops import special_eval
+    from inflatox_torch.ops.special_eval import special_eval_cuda, special_eval_torch
+
+    special_eval.LAUNCHES["B8"] = 0
+    library = torch_library()
+    gen = torch.Generator(device=device).manual_seed(22)
+    slowest, worst_bits, lines = None, 1.0, []
+    for label, fn, inst, params, (lo, hi), mp_ref, tol, abs_floor, frac in b8_cases():
+        z64 = torch.empty(SF_N, dtype=torch.float64, device=device).uniform_(lo, hi,
+                                                                             generator=gen)
+        k64 = special_eval_cuda(inst, z64, params)
+        t = time.perf_counter()
+        p64 = special_eval_torch(inst, z64[:SF_PLAIN_N], params)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        rel, _, same = compare(k64[:SF_PLAIN_N], p64)
+        z32 = z64.float()
+        k32 = special_eval_cuda(inst, z32, params)
+        p32 = special_eval_torch(inst, z32[:SF_PLAIN_N], params)
+        for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+            check(torch.equal(mask(k32[:SF_PLAIN_N]), mask(p32)),
+                  f"B8 {label} f32: {mask.__name__} masks differ")
+        err32 = floored_error(k32[:SF_PLAIN_N], p32, 1e-3, 0.0)
+        check(err32 <= RTOL_F32, f"B8 {label} f32: {err32:.3e} from the plain version")
+        same32 = ((k32[:SF_PLAIN_N] == p32) | (k32[:SF_PLAIN_N].isnan() & p32.isnan())
+                  ).double().mean().item()
+        worst_bits = min(worst_bits, same, same32)
+        ms = time_ms(lambda: special_eval_cuda(inst, z64, params), 10, 1)
+        # 40-digit mpmath at points of the range (Γ's and ψ's away from their poles)
+        zs = np.linspace(lo, hi, 4 * SF_MP_POINTS + 1)[1:-1]
+        if fn in ("lgamma", "gamma", "polygamma"):
+            zs = zs[np.abs(zs - np.round(zs)) > 0.04]
+        zs = zs[:: max(1, len(zs) // SF_MP_POINTS)][:SF_MP_POINTS]
+        zt = torch.tensor(zs, dtype=torch.float64, device=device)
+        got = special_eval_cuda(inst, zt, params).cpu()
+        if mp_ref is None:
+            check(bool(torch.isnan(got).all()), f"B8 {label}: not NaN beyond |ν| = 30.5")
+            mp_err = "NaN as expected"
+        else:
+            with mpmath.workdps(40):
+                want = torch.tensor([float(mp_ref(mpmath.mpf(float(v)))) for v in zs],
+                                    dtype=torch.float64)
+            check(torch.equal(torch.isnan(got), torch.isnan(want)), f"B8 {label}: NaN vs mpmath")
+            err = floored_error(got, want, frac, abs_floor)
+            check(err <= tol, f"B8 {label}: {err:.3e} from 40-digit mpmath (tolerance {tol})")
+            mp_err = f"{err:.3e} (tolerance {tol})"
+        lib_ms = None
+        if inst in library and not params:
+            lib_ms = time_ms(lambda: library[inst](z64), 10, 1)
+        # the operations each argument's route needs, on SF_COUNT_N evenly spaced arguments
+        ops = special_ops([lambda z: special_eval_torch(inst, z, params)],
+                          z64[::SF_N // SF_COUNT_N]).double().mean().item()
+        line = (f"B8 {label}: kernel {ms:.4f} ms at {SF_N} f64 arguments; plain torch "
+                f"{plain_s * 1e3:.1f} ms at the first {SF_PLAIN_N} (one call); f64 vs plain "
+                f"max_rel={rel:.3e} bit_identical={same:.6f}; f32 vs plain {err32:.3e} "
+                f"bit_identical={same32:.6f}; {len(zs)} points vs 40-digit mpmath {mp_err}; "
+                f"{ops:.2f} operations an argument (mean over {SF_COUNT_N})"
+                + (f"; torch.special's {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        print(line)
+        if slowest is None or ms > slowest["ms"]:
+            slowest = {"label": label, "fn": fn, "inst": inst, "params": params, "ms": ms,
+                       "ops": ops, "lo": lo, "hi": hi, "library_ms": lib_ms,
+                       "max_abs": (k64[:SF_PLAIN_N] - p64).abs().nan_to_num().max().item()}
+        del z64, k64, p64, z32, k32, p32
+    # the slowest case's plain version over all SF_N arguments, for the table
+    z = torch.empty(SF_N, dtype=torch.float64, device=device).uniform_(
+        slowest["lo"], slowest["hi"], generator=gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    special_eval_torch(slowest["inst"], z, slowest["params"])
+    torch.cuda.synchronize()
+    slowest["plain_ms"] = (time.perf_counter() - t) * 1e3
+    slowest["bound"] = bound(SF_N * 16, slowest["ops"] * SF_N)
+    slowest["launches"] = special_eval.LAUNCHES["B8"]
+    print(f"B8 alone on {card}: every case's kernel bit-identical share at least "
+          f"{worst_bits:.6f} (f64 and f32); the slowest, {slowest['label']}, "
+          f"{slowest['ms']:.4f} ms at {SF_N} arguments, plain torch {slowest['plain_ms']:.1f} ms "
+          f"(one call), bound {slowest['bound'][0]:.4f} ms ({slowest['bound'][1]}; "
+          f"{slowest['ops']:.2f} operations an argument, the mean of its route's over "
+          f"{SF_COUNT_N} of them)")
+    return slowest
+
+
+def special_models():
+    """Phase 23's models: S1 (bench cfg4b's 1F1 + 2F1 + erf·Γ potential,
+    bench.py:338-340), S2 (tests/test_df32_special.py:75) and S3 (:249), and
+    C9's Piecewise and sinc models (phase 27)."""
+    import sympy
+
+    import inflatox_torch
+
+    x, y, a = sympy.symbols("x y a")
+    half, th, fh = sympy.Rational(1, 2), sympy.Rational(3, 2), sympy.Rational(5, 2)
+    potentials = {
+        "S1": (a * sympy.hyper((half,), (th,), -(x**2)) + sympy.hyper((half, th), (fh,), y**2 / 4)
+               / 10 + sympy.erf(x) * sympy.gamma(y + 2) / 50 + 2),
+        "S2": a * sympy.besselj(0, x) ** 2 + sympy.besselk(1, x + 2) * y**2 + 2,
+        "S3": (a * sympy.besselj(sympy.Rational(3, 10), x) ** 2
+               + sympy.besselk(sympy.Rational(5, 2), x + 2) * y**2 + 2),
+        "C9": sympy.Piecewise((a * x**2, x > 0), (a * x**4, True)) + y**2,
+        "sinc": a * sympy.sinc(x) + y**2,
+    }
+    out = {}
+    for name, V in potentials.items():
+        model = inflatox_torch.InflationModelBuilder.new(
+            [x, y], [[1, 0], [0, 1]], V, name, silent=True, simplify=False,
+            assertions=False).build()
+        out[name] = inflatox_torch.Compiler(model, silent=True).compile()
+    return out
+
+
+def f32_check(art, kind, args, extent, shape, got, label):
+    """An f32 grid kernel's output against its plain f32 version on the card:
+    identical masks; every value within rtol 1e-5 where the f32 and f64 plain
+    versions agree within 1e-4 (as phase 13), the share within it reported.
+    Returns (max abs error, share within)."""
+    import torch
+
+    from inflatox_torch.ops.cuda_kernels import scan_torch
+
+    plain32 = scan_torch(art, kind, args, extent, shape, got.device, "f32")
+    plain64 = scan_torch(art, kind, args, extent, shape, got.device)
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        check(torch.equal(mask(got), mask(plain32)), f"{label}: {mask.__name__} masks differ")
+    diff = (got.double() - plain32.double()).abs()
+    within = ((diff <= RTOL_F32 * plain32.double().abs()) | (got == plain32)
+              | (torch.isnan(got) & torch.isnan(plain32)))
+    settled = torch.isfinite(plain64) & ((plain32.double() - plain64).abs()
+                                          <= 1e-4 * plain64.abs())
+    check(bool(within[settled].all()), f"{label}: a settled point beyond rtol {RTOL_F32}")
+    same = ((got == plain32) | (torch.isnan(got) & torch.isnan(plain32))).double().mean().item()
+    share = within.double().mean().item()
+    print(f"{label}: kernel vs plain f32 torch on the card: share within rtol {RTOL_F32} "
+          f"{share:.6f}, bit_identical={same:.6f}; where the f32 and f64 plain versions agree "
+          f"within 1e-4 ({settled.double().mean().item():.6f} of the points) all within")
+    return diff.nan_to_num(posinf=0.0).max().item(), share
+
+
+def mp_grid_check(art, args, extent, n, device, label):
+    """V, V_vv, V_wv, V_ww and |∇V|² from kernel B1 at SF_MP_POINTS grid
+    points against 40-digit mpmath at the same f64 coordinates (relative,
+    floored at 1e-9 of |V|); returns the worst error."""
+    import mpmath
+    import numpy as np
+
+    from inflatox_torch.ops.cuda_kernels import scan_cuda
+
+    v = scan_cuda(art, "potential", args, extent, (n, n), device)[0]
+    h = scan_cuda(art, "hesse", args, extent, (n, n), device)
+    eps = scan_cuda(art, "epsilon_v", args, extent, (n, n), device)[0]
+    reference = mp_model(art, args)
+    rng = np.random.default_rng(23)
+    x0a, x0b, x1a, x1b = extent
+    dx0, dx1 = (x0b - x0a) / n, (x1b - x1a) / n
+    worst = [0.0] * 5
+    with mpmath.workdps(40):
+        for i, j in zip(rng.integers(0, n, SF_MP_POINTS), rng.integers(0, n, SF_MP_POINTS)):
+            i, j = int(i), int(j)
+            exact = reference(mpmath.mpf(x0a + i * dx0), mpmath.mpf(x1a + j * dx1))
+            vv = v[i, j].item()
+            got = [vv, h[0, i, j].item(), h[2, i, j].item(), h[3, i, j].item(),
+                   2.0 * eps[i, j].item() * vv * vv]
+            floor = 1e-9 * abs(float(exact[0]))
+            for k in range(5):
+                worst[k] = max(worst[k], abs(float((got[k] - exact[k])
+                                                   / max(abs(exact[k]), floor))))
+    names = ("V", "V_vv", "V_wv", "V_ww", "|∇V|²")
+    print(f"{label}: kernel B1 at {SF_MP_POINTS} grid points vs 40-digit mpmath, largest "
+          "relative error: " + ", ".join(f"{nm} {w:.3e}" for nm, w in zip(names, worst)))
+    check(max(worst) <= 1e-11, f"{label}: a model function beyond 1e-11 of mpmath")
+    return max(worst)
+
+
+def special_solve_check(art, pars, f0, steps, label, device, parts):
+    """Phase 25: S2's solves on kernel B6 (B8 in its derivative) through
+    ``solve_eom_batch``, counted; the first SPECIAL_SOLVE_ROWS rows against
+    the plain version on the card (rtol 1e-12, identical NaN masks) and, for
+    trajectories 0-63, on the CPU (phase 8's tolerances).  The plain version
+    runs some 6,000 torch operations a derivative here, so only the prefix
+    is compared.  The whole launch's attempts come from ``parts``,
+    scripts/probe_solver_chain.py's instrumented copy of B6 for S2, which
+    makes the plain version's attempts on the prefix (checked).  Returns
+    what the kernel table needs."""
+    import numpy as np
+    import probe_solver_chain as chain
+    import torch
+
+    from inflatox_torch import background
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
+
+    batch, n = f0.shape
+    d0 = np.zeros_like(f0)
+    cuda_solver.LAUNCHES = 0
+    t = time.perf_counter()
+    rows_np, times_np = background.solve_eom_batch(art, pars, steps, f0, d0, solver="rkf",
+                                                   return_time=True, device=device)
+    host_s = time.perf_counter() - t
+    launches = cuda_solver.LAUNCHES
+    check(launches > 0, f"{label}: the solve launched no kernel")
+    ok = np.isfinite(rows_np).all(axis=(1, 2))
+    check(rows_np.shape == (batch, steps, 2 * n + 1) and ok.mean() > 0.5,
+          f"{label}: rows {rows_np.shape}, finite share {ok.mean():.3f}")
+    check(bool((np.diff(times_np[ok], axis=1) >= 0).all()), f"{label}: times do not increase")
+    ft = torch.tensor(f0, dtype=torch.float64, device=device)
+    dt = torch.zeros_like(ft)
+    pt = torch.tensor(np.asarray(pars, dtype=np.float64), device=device)
+    m = SPECIAL_SOLVE_ROWS
+    k_rows, k_times = solve_cuda(art, pt, m, ft, dt)
+    check(np.array_equal(k_rows.cpu().numpy(), rows_np[:, :m], equal_nan=True),
+          f"{label}: the first {m} rows of the full solve differ from a {m}-row solve")
+    t = time.perf_counter()
+    p_rows, p_times, attempts = solve_torch(art, pt, m, ft, dt, count_attempts=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    rel, absolute, same = compare(torch.cat([k_rows, k_times[..., None]], -1),
+                                  torch.cat([p_rows, p_times[..., None]], -1), RTOL_SOLVER)
+    cpu_rows, cpu_times = solve_torch(art, pt.cpu(), m, ft[:64].cpu(), dt[:64].cpu())
+    kc, kt = k_rows[:64].cpu(), k_times[:64].cpu()
+    rel_t, _, _ = compare(kt, cpu_times, RTOL_CPU_TIMES)
+    check(torch.equal(torch.isnan(kc), torch.isnan(cpu_rows)), f"{label}: CPU NaN masks differ")
+    scale = cpu_rows.abs().nan_to_num().amax(dim=1, keepdim=True).clamp_min(1e-300)
+    rel_c = ((kc - cpu_rows).abs().nan_to_num() / scale).max().item()
+    check(rel_c <= RTOL_CPU_PHYSICAL, f"{label}: kernel vs CPU state {rel_c:.3e}")
+    prefix_ms = time_ms(lambda: solve_cuda(art, pt, m, ft, dt), 5, 1)
+    ms = time_ms(lambda: solve_cuda(art, pt, steps, ft, dt), 3, 1)
+    # the attempts of the whole launch, and B8's operations per derivative
+    # on a sample of the states the solve recorded
+    prefix_attempts = chain.attribute(parts, 0, ft, dt, pt, m)["attempts_total"]
+    check(prefix_attempts == attempts.sum().item(),
+          f"{label}: the instrumented copy made {prefix_attempts} attempts on the first {m} "
+          f"rows, the plain version {attempts.sum().item()}")
+    n_attempts = chain.attribute(parts, 0, ft, dt, pt, steps)["attempts_total"]
+    states = rows_np[ok].reshape(-1, 2 * n + 1)
+    states = torch.tensor(states[:: max(1, len(states) // SF_COUNT_N)][:SF_COUNT_N],
+                          device=device)
+    per_deriv = special_ops([art.eom, art.eom_hdot], list(states[:, :n].T),
+                            list(states[:, n:2 * n].T), pt).double().mean().item()
+    per_attempt = attempt_ops(art, "rkf", per_deriv)
+    print(f"{label}: launches={launches}, finite trajectories {ok.mean():.4f}, user-facing call "
+          f"{host_s:.3f} s host clock; kernel {ms:.4f} ms for {steps} rows, {n_attempts} "
+          f"attempts; the first {m} rows (of {steps}) vs plain torch on the card: "
+          f"max_rel={rel:.3e} max_abs={absolute:.3e} bit_identical={same:.6f} (plain version "
+          f"{plain_s:.2f} s, kernel {prefix_ms:.4f} ms for them, {prefix_attempts} attempts, "
+          f"as the plain version's); trajectories 0-63 vs the CPU: times max_rel={rel_t:.3e}, "
+          f"state {rel_c:.3e}; B8 {per_deriv:.2f} operations a derivative (mean over "
+          f"{len(states)} of the solve's states), {per_attempt:.2f} an attempt")
+    n_bytes = steps * (2 * n + 2) * batch * 8 + 2 * ft.numel() * 8 + pt.numel() * 8
+    return {"launches": launches, "max_abs": absolute, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound": bound(n_bytes, per_attempt * n_attempts)}
+
+
+def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts):
+    """Phases 22-27 (kernel B8).  Rows made by ``timed_row`` join its table;
+    the others are returned.  ``s2_parts`` is S2's instrumented solver
+    library (scripts/probe_solver_chain.py), which counts B6's attempts."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.ops.cuda_kernels import (
+        scan_batch_cuda,
+        scan_batch_torch,
+        scan_cuda,
+        scan_points_cuda,
+        scan_points_torch,
+        scan_torch,
+    )
+    from inflatox_torch.parallel import parameter_sweep
+
+    rows, b8_total = [], 0
+    sf_src = "inflatox_torch/csrc/special.cuh"
+
+    # 22. B8 alone
+    t = time.perf_counter()
+    slow = b8_alone(device, card)
+    print(f"phase 22: {time.perf_counter() - t:.1f} s")
+
+    # 23. grid scans of S1-S3 at full width, f64 (B1) and f32 (B2)
+    t = time.perf_counter()
+    args = np.array(SPECIAL_ARGS)
+    n = SPECIAL_N
+    grid = {}
+    for name in ("S1", "S2", "S3"):
+        art = special[name]
+        extent = S1_EXTENT if name == "S1" else S2_EXTENT
+        check(art.uses_special_functions, f"{name}: the kernels would not run B8")
+        al = GeneralisedAL(art, device=device, validate_basis=False)
+        for precision, kernel in (("f64", "B1"), ("f32", "B2")):
+            label = f"{name} complete_analysis {n}² {precision}"
+            reset_counts()
+            maps = torch.stack(al.complete_analysis(args, *extent, n, n, progress=False,
+                                                    precision=precision, output="f64_device"))
+            launches = launched(kernel, label)
+            b8_total += launches
+            check(maps.shape == (6, n, n) and bool(torch.isfinite(maps).any()),
+                  f"{label}: maps {tuple(maps.shape)}")
+            if precision == "f64":
+                max_abs, _ = grid_check(art, "complete_analysis", args, extent, (n, n), "f64",
+                                        maps, label, cpu_rtol=CPU_RTOL_SPECIAL)
+            else:
+                max_abs, _ = f32_check(art, "complete_analysis", args, extent, (n, n), maps,
+                                       label)
+            grid[(name, precision)] = (launches, max_abs)
+            print(f"{label}: launches={launches} (B8 inside each); finite share "
+                  f"{torch.isfinite(maps).double().mean().item():.6f}")
+            del maps
+        mp_grid_check(art, args, extent, n, device, f"{name} {n}² f64")
+    al1 = GeneralisedAL(special["S1"], device=device, validate_basis=False)
+    reset_counts()
+    v = al1.calc_V_array(args, S1_EXTENT[::2], S1_EXTENT[1::2], [n, n])
+    h = al1.calc_H_array(args, *S1_EXTENT, [n, n])
+    launched("B1", "S1 calc_V_array/calc_H_array")
+    check(np.array_equal(v, scan_cuda(special["S1"], "potential", args, S1_EXTENT, (n, n),
+                                      device)[0].cpu().numpy(), equal_nan=True)
+          and np.array_equal(h.reshape(4, n, n), scan_cuda(special["S1"], "hesse", args,
+                                                           S1_EXTENT, (n, n), device).cpu()
+                             .numpy(), equal_nan=True),
+          "S1: calc_V_array/calc_H_array differ from the kernel's own")
+    try:
+        al1.complete_analysis(args, *S1_EXTENT, 64, 64, progress=False, precision="dd")
+        raise SmokeFailure("S1 precision='dd' did not raise")
+    except NotImplementedError as e:
+        check("special function" in str(e), f"S1 dd: {e}")
+        print(f"S1 precision='dd' raises: {e}")
+    print(f"S1 calc_V_array/calc_H_array {n}²: the kernel's own; phase 23: "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # 24. B5a over 1,048,576 points of S1's and S3's windows
+    t = time.perf_counter()
+    points = {}
+    for name, extent in (("S1", S1_EXTENT), ("S3", S2_EXTENT)):
+        rng = np.random.default_rng(24)
+        pts = torch.tensor(np.stack([rng.uniform(extent[0], extent[1], SPECIAL_POINTS),
+                                     rng.uniform(extent[2], extent[3], SPECIAL_POINTS)], 1),
+                           device=device)
+        al = GeneralisedAL(special[name], device=device, validate_basis=False)
+        launches, max_abs = points_and_check(al, special[name], args, pts,
+                                             f"{name} on-trajectory kinds at {SPECIAL_POINTS} "
+                                             "points", cpu_rtol=CPU_RTOL_SPECIAL)
+        b8_total += launches
+        points[name] = (launches, max_abs, pts)
+    print(f"phase 24: {time.perf_counter() - t:.1f} s")
+
+    # 25. S2's background solves at cfg5d's width (B6)
+    t = time.perf_counter()
+    rng = np.random.default_rng(25)
+    f0 = np.stack([rng.uniform(S2_EXTENT[0], S2_EXTENT[1], B_SOLVE),
+                   rng.uniform(S2_EXTENT[2], S2_EXTENT[3], B_SOLVE)], 1)
+    solve = special_solve_check(special["S2"], args, f0, STEPS,
+                                f"S2 RKF45 {B_SOLVE} x {STEPS}", device, s2_parts)
+    b8_total += solve["launches"]
+    print(f"phase 25: {time.perf_counter() - t:.1f} s")
+
+    # 26. S1's sweep over 8 values of a at 512², f64 (B7a) and f32 (B7b)
+    t = time.perf_counter()
+    sw = (SWEEP_N, SWEEP_N)
+    a_values = np.linspace(1.0, 3.0, SPECIAL_SWEEP_SETS)[:, None]
+    for precision, kernel, rtol in (("f64", "B7a", RTOL), ("f32", "B7b", None)):
+        label = f"sweep S1 {SPECIAL_SWEEP_SETS} values of a x {SWEEP_N}² {precision}"
+        reset_counts()
+        maps = parameter_sweep(al1, a_values, S1_EXTENT, sw, progress=False, precision=precision)
+        launches = launched(kernel, label)
+        b8_total += launches
+        got = scan_batch_cuda(special["S1"], "complete_analysis", a_values, S1_EXTENT, sw,
+                              device, precision)
+        check(np.array_equal(got.cpu().numpy(), maps, equal_nan=True),
+              f"{label}: the user-facing call differs from the kernel's own")
+        singles = min(compare(got[k], scan_cuda(special["S1"], "complete_analysis",
+                                                a_values[k], S1_EXTENT, sw, device,
+                                                precision), 0.0)[2]
+                      for k in range(SPECIAL_SWEEP_SETS))
+        check(singles == 1.0, f"{label}: a set differs from its single scan")
+        if rtol is not None:
+            rel, _, same = compare(got, scan_batch_torch(special["S1"], "complete_analysis",
+                                                         a_values, S1_EXTENT, sw, device), rtol)
+            note = f"kernel vs plain torch on the card max_rel={rel:.3e} bit_identical={same:.6f}"
+        else:
+            shares = [f32_check(special["S1"], "complete_analysis", a_values[k], S1_EXTENT, sw,
+                                got[k], f"{label}, set {k}")[1] for k in range(SPECIAL_SWEEP_SETS)]
+            note = f"each set vs plain f32 torch: share within rtol {RTOL_F32} at least " \
+                   f"{min(shares):.6f}"
+        print(f"{label}: launches={launches}; each set bit for bit its single scan; {note}")
+        del maps, got
+    print(f"phase 26: {time.perf_counter() - t:.1f} s")
+
+    # 27. C9's Piecewise and sinc at 1024² through B1, B2 and B4
+    t = time.perf_counter()
+    for name in ("C9", "sinc"):
+        al = GeneralisedAL(special[name], device=device, validate_basis=False)
+        for precision, kernel in (("f64", "B1"), ("f32", "B2"), ("dd", "B4")):
+            label = f"{name} complete_analysis {n}² {precision}"
+            reset_counts()
+            maps = torch.stack(al.complete_analysis(args, *PIECEWISE_EXTENT, n, n,
+                                                    progress=False, precision=precision,
+                                                    output="f64_device"))
+            launched(kernel, label)
+            if precision == "f32":
+                f32_check(special[name], "complete_analysis", args, PIECEWISE_EXTENT, (n, n),
+                          maps, label)
+            else:
+                grid_check(special[name], "complete_analysis", args, PIECEWISE_EXTENT, (n, n),
+                           precision, maps, label, rows=16)
+            del maps
+    print(f"phase 27: {time.perf_counter() - t:.1f} s")
+
+    # timing and the kernel table's rows
+    for name in ("S1", "S2", "S3"):
+        art = special[name]
+        extent = S1_EXTENT if name == "S1" else S2_EXTENT
+        for precision, kernel, source_kind, ops_per_s, size in (
+                ("f64", "b1", "388", F64_OPS_PER_S, 8), ("f32", "b2", "231", F32_OPS_PER_S, 4)):
+            timed_row(f"grid_scan_{kernel}_{precision}_{name.lower()}_{n}", grid_src,
+                      f"{pk}:{source_kind}", *grid[(name, precision)],
+                      direct_grid(art, "complete_analysis", args, extent, (n, n), device,
+                                  precision),
+                      lambda art=art, extent=extent, precision=precision: scan_torch(
+                          art, "complete_analysis", args, extent, (n, n), device, precision),
+                      6 * n * n * size, staged_ops(
+                          art, "complete_analysis", precision, n, n,
+                          special=grid_special_ops(art, "complete_analysis", args, extent, n,
+                                                   device, precision)), ops_per_s)
+    for name in ("S1", "S3"):
+        art = special[name]
+        launches, max_abs, pts = points[name]
+        ms, plain_ms, windows, n_k, n_p = adaptive_turns(
+            lambda: scan_points_cuda(art, "complete_analysis", args, pts),
+            lambda: scan_points_torch(art, "complete_analysis", args, pts))
+        sample = pts[:: SPECIAL_POINTS // SF_COUNT_N]
+        b8_ops = special_ops([art.potential, art._hesse, art.grad_square], list(sample.T),
+                             torch.tensor(args, device=device)).double().mean().item()
+        per_point = point_ops(art, b8_ops)
+        bnd = bound(SPECIAL_POINTS * (16 + 6 * 8), per_point * SPECIAL_POINTS)
+        print(f"timing B5a {name} complete_analysis at {SPECIAL_POINTS} points on {card}: "
+              f"kernel {ms:.4f} ms (windows {windows[0]:.4f}, {windows[1]:.4f}), plain torch "
+              f"{plain_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_point:.2f} "
+              f"operations a point, of them B8's {b8_ops:.2f}, the mean over {len(sample)} "
+              "of the points)")
+        rows.append(row(f"points_scan_b5a_{name.lower()}_{SPECIAL_POINTS}", grid_src,
+                        f"{pk}:1055", launches, max_abs, ms, plain_ms, bnd))
+    b6_row = row(f"solver_b6_rkf_s2_{B_SOLVE}x{STEPS}", "inflatox_torch/csrc/solver.cu",
+                 "inflatox_tpu/ops/pallas_solver.py:173", solve["launches"], solve["max_abs"],
+                 solve["ms"], solve["plain_ms"], solve["bound"])
+    b6_row["note"] = (f"ms and bound: the whole {B_SOLVE} x {STEPS} launch; plain_ms and "
+                      f"max_abs_err: its first {SPECIAL_SOLVE_ROWS} rows")
+    rows.append(b6_row)
+    b8_row = row("special_b8_eval", sf_src, f"{DF32_SPECIAL}:{B8_REPLACES[slow['fn']]}",
+                 b8_total, slow["max_abs"], slow["ms"], slow["plain_ms"], slow["bound"])
+    b8_row["library_ms"] = slow["library_ms"]
+    b8_row["note"] = (f"launches: the grid, point and solver launches of phases 23-26's main "
+                      f"paths, each running B8 inside; ms, plain_ms, max_abs_err and bound: "
+                      f"phase 22's slowest case alone, {slow['label']}, {SF_N} arguments "
+                      f"through csrc/special_eval.cu ({slow['launches']} launches there)")
+    print(f"kernel B8 on the main paths of phases 23-26: {b8_total} launches of kernels that "
+          f"ran it; alone (phase 22) the slowest case, {slow['label']}, in the table's "
+          "special_b8_eval row")
+    rows.append(b8_row)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -865,7 +1559,12 @@ def main() -> int:
     from inflatox_torch import background
     from inflatox_torch.consistency_conditions import GeneralisedAL
     from inflatox_torch.ops import cuda_solver
-    from inflatox_torch.ops.build import find_nvcc, load_grid_scan, load_solver
+    from inflatox_torch.ops.build import (
+        find_nvcc,
+        load_grid_scan,
+        load_solver,
+        load_special_eval,
+    )
     from inflatox_torch.ops.cuda_kernels import (
         scan_cuda,
         scan_points_cuda,
@@ -908,6 +1607,9 @@ def main() -> int:
     d5_args = inflatox_torch.models._args_by_symbol(d5.model, D5_ARGS)
     t_bundles = time.perf_counter() - t2
     t2 = time.perf_counter()
+    special = special_models()  # phases 22-27
+    t_special = time.perf_counter() - t2
+    t2 = time.perf_counter()
 
     def timed(load, source):
         t = time.perf_counter()
@@ -926,6 +1628,19 @@ def main() -> int:
         "B1/B5a D5": (load_grid_scan, d5.cuda_source("f64")),
         "B4/B5b EGNO": (load_grid_scan, egno.cuda_source("dd")),
         "B6 hyperinflation, instrumented": (chain.load_parts, art.cuda_solver_source()),
+        "B8 alone": (lambda _: load_special_eval(), None),
+        "B1/B5a S1": (load_grid_scan, special["S1"].cuda_source()),
+        "B2 S1": (load_grid_scan, special["S1"].cuda_source("f32")),
+        "B1/B5a S2": (load_grid_scan, special["S2"].cuda_source()),
+        "B2 S2": (load_grid_scan, special["S2"].cuda_source("f32")),
+        "B1/B5a S3": (load_grid_scan, special["S3"].cuda_source()),
+        "B2 S3": (load_grid_scan, special["S3"].cuda_source("f32")),
+        "B6 S2": (load_solver, special["S2"].cuda_solver_source()),
+        "B6 S2, instrumented": (lambda source: chain.load_parts(source, "smoke_s2"),
+                                special["S2"].cuda_solver_source()),
+        **{f"{b} {name}": (load_grid_scan, special[name].cuda_source(precision))
+           for name in ("C9", "sinc") for b, precision in (("B1", "f64"), ("B2", "f32"),
+                                                           ("B4", "dd"))},
     }
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
@@ -933,7 +1648,9 @@ def main() -> int:
     t3 = time.perf_counter()
     al = GeneralisedAL(art, device=device, validation_seed=7)
     print(f"build: hyperinflation model {t1 - t0:.2f} s, angular and 3-field models "
-          f"{t2 - t1 - t_bundles:.2f} s, EGNO and D5 from their bundles {t_bundles:.2f} s; "
+          f"{t2 - t1 - t_bundles - t_special:.2f} s, EGNO and D5 from their bundles "
+          f"{t_bundles:.2f} s, the special-function models S1-S3, C9 and sinc "
+          f"{t_special:.2f} s; "
           f"kernel B1 first use (nvcc + load) {built['B1/B5 hyperinflation'][1]:.2f} s; all "
           f"{len(jobs)} kernel libraries, built at once, {t3 - t2:.2f} s; nvcc per library: "
           + ", ".join(f"{name} {lib.build_seconds:.2f} s" for name, (lib, _) in built.items()))
@@ -1582,6 +2299,13 @@ def main() -> int:
     print(f"phases 18-21: {time.perf_counter() - t_phase18:.1f} s; the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # 22-27. kernel B8: the special functions alone, then on the main paths
+    t_phase22 = time.perf_counter()
+    special_rows = special_phases(special, device, card, row, timed_row, grid_src, pk,
+                                  built["B6 S2, instrumented"][0])
+    print(f"phases 22-27: {time.perf_counter() - t_phase22:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [
         row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",
             "inflatox_tpu/ops/pallas_kernels.py:388", b1_launches, b1_max_abs, b1_ms,
@@ -1597,12 +2321,14 @@ def main() -> int:
             rk4_plain_ms, rk4["bound"]),
         *timed_rows,
     ]
+    old_rows = [k for k in kernels if k["name"] in BEFORE_MS]
+    kernels += special_rows
     print(f"kernel times on {card} beside those before the staged grid kernel and the "
           "flat-loop solver (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W; another run, the grid "
           "kernels then timed through their wrappers, so a guide: scripts/probe_grid_stages.py "
           "and scripts/probe_solver_chain.py compare the trees in turns): " + "; ".join(
               f"{k['name']} {k['ms']:.4f} ms (before {BEFORE_MS[k['name']]:.4f}, "
-              f"{BEFORE_MS[k['name']] / k['ms']:.2f}x)" for k in kernels))
+              f"{BEFORE_MS[k['name']] / k['ms']:.2f}x)" for k in old_rows))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ if _sys.getrecursionlimit() < 100_000:
 
 from .compiler import CompilationArtifact, CompiledModel, Compiler
 from .symbolic import InflationModel, InflationModelBuilder
+from .utils.logging import log_info, log_warn
 from .version import __version__
 
 from . import background
@@ -45,6 +46,8 @@ __all__ = [
     "InflationModelBuilder",
     "background",
     "consistency_conditions",
+    "log_info",
+    "log_warn",
     "models",
     "parallel",
 ]

@@ -185,6 +185,14 @@ class CompiledModel:
             self._cuda_source[precision] = generate_header(self, precision)
         return self._cuda_source[precision]
 
+    @property
+    def uses_special_functions(self) -> bool:
+        """True if a lowered model function calls a special function, so
+        that the model's kernels carry kernel B8 (``csrc/special.cuh``)."""
+        fns = (self.potential, self.grad_square, self._grad, self._hesse,
+               self.eom_h, self.eom, self.eom_hdot)
+        return any("_special." in fn.source for fn in fns)
+
     def dd_fns(self) -> dict:
         """The model functions in double-double (the counterpart of the JAX
         package's ``tf_fns``): ``potential``, ``grad_square``, ``grad`` and

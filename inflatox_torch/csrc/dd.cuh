@@ -234,6 +234,13 @@ INFLX_FN dd dd_powi(dd b) {
 
 INFLX_FN dd dd_abs(dd a) { return a.hi < 0.0 ? dd_neg(a) : a; }
 INFLX_FN bool dd_gt(dd a, dd b) { return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo); }
+// a Piecewise's comparisons and select (ops/dd.py's DD comparisons, dd_where)
+INFLX_FN bool dd_eq(dd a, dd b) { return a.hi == b.hi && a.lo == b.lo; }
+INFLX_FN bool dd_ne(dd a, dd b) { return !dd_eq(a, b) && a.hi == a.hi && b.hi == b.hi; }
+INFLX_FN bool dd_lt(dd a, dd b) { return dd_gt(b, a); }
+INFLX_FN bool dd_ge(dd a, dd b) { return dd_gt(a, b) || dd_eq(a, b); }
+INFLX_FN bool dd_le(dd a, dd b) { return dd_gt(b, a) || dd_eq(a, b); }
+INFLX_FN dd dd_where(bool c, dd a, dd b) { return c ? a : b; }
 // NaN-propagating, as torch.maximum/torch.minimum
 INFLX_FN dd dd_max(dd a, dd b) { return (a.hi != a.hi || dd_gt(a, b)) ? a : b; }
 INFLX_FN dd dd_min(dd a, dd b) { return (a.hi != a.hi || dd_gt(b, a)) ? a : b; }

@@ -102,6 +102,16 @@ _C_FUNCS = {
 _DD_FUNCS = {"sqrt": "dd_sqrt", "exp": "dd_exp", "log": "dd_log", "pow": "dd_pow",
              "abs": "dd_abs", "maximum": "dd_max", "minimum": "dd_min"}
 
+#: comparisons of a Piecewise condition → C operators, and their
+#: double-double functions (``csrc/dd.cuh``)
+_CMPOPS = {ast.Lt: "<", ast.LtE: "<=", ast.Gt: ">", ast.GtE: ">=", ast.Eq: "==", ast.NotEq: "!="}
+_DD_CMPOPS = {ast.Lt: "dd_lt", ast.LtE: "dd_le", ast.Gt: "dd_gt", ast.GtE: "dd_ge",
+              ast.Eq: "dd_eq", ast.NotEq: "dd_ne"}
+_LOGICAL = {"logical_and": "&&", "logical_or": "||"}
+
+#: the largest polygamma order of kernel B8 (``csrc/special.cuh``)
+_POLYGAMMA_MAX = 8
+
 _BINOPS = {ast.Add: "+", ast.Sub: "-", ast.Mult: "*"}
 _RN_BINOPS = {ast.Add: "inflx_add", ast.Sub: "inflx_sub", ast.Mult: "inflx_mul"}
 _DD_BINOPS = {ast.Add: "dd_add", ast.Sub: "dd_sub", ast.Mult: "dd_mul", ast.Div: "dd_div"}
@@ -216,8 +226,9 @@ def _c(node, ctx: _Ctx) -> str:
 
     Division follows what torch computes on the card: ``number / tensor``
     is ``tensor.reciprocal() * number`` (``Tensor.__rtruediv__``) and
-    ``tensor / number`` multiplies by the reciprocal, computed in the
-    tensor's type from the number (CUDA's CPU-scalar division path)."""
+    ``tensor / number`` multiplies by the reciprocal (CUDA's CPU-scalar
+    division path), which torch forms in f64 from the number and, for an f32
+    tensor, rounds to f32 once."""
     if ctx.real == "float" and _is_scalar(node, ctx.scalars):
         value = _scalar_value(node, ctx.values)
         if value is not None:
@@ -231,6 +242,11 @@ def _c(node, ctx: _Ctx) -> str:
             if lscalar and not rscalar:
                 return _binop(ast.Mult, ctx.divide(one, right), left, ctx.rn)
             if rscalar and not lscalar:
+                value = _scalar_value(node.right, ctx.values)
+                if ctx.real == "float" and value not in (None, 0.0):
+                    # torch on the card forms the reciprocal from the f64
+                    # number and rounds it to f32 once (scripts/probe_f32_scalar_div.py)
+                    return _binop(ast.Mult, left, ctx.literal(1.0 / value), ctx.rn)
                 return _binop(ast.Mult, left, f"({one} / {right})", ctx.rn)
             return f"({left} / {right})" if lscalar else ctx.divide(left, right)
         return _binop(type(node.op), left, right, ctx.rn)
@@ -247,8 +263,20 @@ def _c(node, ctx: _Ctx) -> str:
         index = _int_const(node.slice)
         if slot is not None and index is not None:
             return f"{slot}[{index}]"
+    if isinstance(node, ast.Compare) and len(node.ops) == 1 and type(node.ops[0]) in _CMPOPS:
+        return (f"({ctx.sub(node.left)} {_CMPOPS[type(node.ops[0])]} "
+                f"{ctx.sub(node.comparators[0])})")
     if isinstance(node, ast.Call):
         func, args = node.func, node.args
+        if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
+                and func.value.id == "_special"):
+            return _c_special(func.attr, args, ctx)
+        if isinstance(func, ast.Attribute) and func.attr == "where" and len(args) == 3:
+            return f"({ctx.sub(args[0])} ? {ctx.sub(args[1])} : {ctx.sub(args[2])})"
+        if isinstance(func, ast.Attribute) and func.attr in _LOGICAL and len(args) == 2:
+            return f"({ctx.sub(args[0])} {_LOGICAL[func.attr]} {ctx.sub(args[1])})"
+        if isinstance(func, ast.Attribute) and func.attr == "logical_not" and len(args) == 1:
+            return f"(!{ctx.sub(args[0])})"
         if isinstance(func, ast.Name) and func.id == "_ipow" and len(args) == 2:
             n = _int_const(args[1])
             if n is not None and n < 0 and ctx.fast_div:  # 1 / b**|n|, as inflx_powi
@@ -271,6 +299,59 @@ def _c(node, ctx: _Ctx) -> str:
     )
 
 
+def _static_value(node, ctx: _Ctx):
+    """The Python number a node denotes when the lowered function runs
+    (an order or parameter given as a literal), or None for a tensor."""
+    if not _is_scalar(node, ctx.scalars):
+        return None
+    return _scalar_value(node, ctx.values)
+
+
+def _is_int(value) -> bool:
+    return value is not None and math.isfinite(value) and float(value) == int(value)
+
+
+#: _special functions with an order, and their C entries
+_ORDERED = ("besselj", "bessely", "besseli", "besselk")
+_SPHERICAL = ("sph_jn", "sph_yn")
+_PLAIN = ("hyp0f1", "hyp1f1", "hyp2f1", "hyp2f0", "erf", "erfc", "lgamma", "gamma")
+
+
+def _c_special(name: str, args, ctx: _Ctx) -> str:
+    """C call of kernel B8 (``csrc/special.cuh``) for ``_special.<name>(…)``:
+    a static integer order is a template argument (``inflx_besselj_int<T,
+    0>(z)``); any other order (a fractional literal or a parameter) takes
+    the run-time-order route, as :func:`special._is_static_int` decides in
+    the plain version; hypergeometric parameters stay arguments."""
+    T = ctx.real
+    if name in _ORDERED:
+        nu, z = args
+        value = _static_value(nu, ctx)
+        if _is_int(value):
+            return f"inflx_{name}_int<{T}, {int(value)}>({ctx.sub(z)})"
+        return f"inflx_{name}<{T}>({ctx.sub(nu)}, {ctx.sub(z)})"
+    if name in _SPHERICAL:
+        n, z = args
+        value = _static_value(n, ctx)
+        if value is None:
+            raise NotImplementedError(f"{name} needs a numeric order in a CUDA kernel")
+        if _is_int(value):
+            return f"inflx_{name}_int<{T}, {int(value)}>({ctx.sub(z)})"
+        if _is_int(value + 0.5):
+            return f"inflx_{name}_half<{T}, {int(value + 0.5)}>({ctx.sub(z)})"
+        return f"inflx_{name}_frac<{T}>({_double(value)}, {ctx.sub(z)})"
+    if name == "polygamma":
+        n = _int_const(args[0])
+        if n is None or not 0 <= n <= _POLYGAMMA_MAX:
+            raise NotImplementedError(
+                f"polygamma of order {ast.unparse(args[0])} has no CUDA kernel (orders "
+                f"0..{_POLYGAMMA_MAX})")
+        return f"inflx_polygamma<{T}, {n}>({ctx.sub(args[1])})"
+    if name in _PLAIN:
+        return f"inflx_{name}<{T}>({', '.join(ctx.sub(a) for a in args)})"
+    raise NotImplementedError(f"no CUDA translation for special function {name!r}")
+
+
 def _c_dd(node, ctx: _Ctx) -> str:
     """C expression, in double-double, for one node of a lowered function
     rewritten by :func:`inflatox_torch.lowering.dd_lowering.dd_tree`."""
@@ -287,8 +368,23 @@ def _c_dd(node, ctx: _Ctx) -> str:
         index = _int_const(node.slice)
         if slot is not None and index is not None:
             return f"{slot}[{index}]"
+    if isinstance(node, ast.Compare) and len(node.ops) == 1 and type(node.ops[0]) in _DD_CMPOPS:
+        return (f"{_DD_CMPOPS[type(node.ops[0])]}({ctx.sub(node.left)}, "
+                f"{ctx.sub(node.comparators[0])})")
     if isinstance(node, ast.Call):
         func, args = node.func, node.args
+        if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
+                and func.value.id == "_special"):
+            raise NotImplementedError(
+                f"special function {func.attr!r} is not available in the "
+                "double-double engine (kernels B4, B5b, B7d); use precision='f64'"
+            )
+        if isinstance(func, ast.Attribute) and func.attr == "where" and len(args) == 3:
+            return f"dd_where({ctx.sub(args[0])}, {ctx.sub(args[1])}, {ctx.sub(args[2])})"
+        if isinstance(func, ast.Attribute) and func.attr in _LOGICAL and len(args) == 2:
+            return f"({ctx.sub(args[0])} {_LOGICAL[func.attr]} {ctx.sub(args[1])})"
+        if isinstance(func, ast.Attribute) and func.attr == "logical_not" and len(args) == 1:
+            return f"(!{ctx.sub(args[0])})"
         if isinstance(func, ast.Name) and func.id == "_c" and isinstance(args[0], ast.Constant):
             return f"dd_c({_double(args[0].value)})"
         if isinstance(func, ast.Name) and func.id == "_ipow" and len(args) == 2:
@@ -363,7 +459,7 @@ def _is_leaf(node, ctx: _Ctx) -> bool:
     """True for what a dag keeps inline: coordinates, parameters, CSE
     locals, literals, constant f64/f32 subexpressions (the compiler folds
     them) and wrappers that pass their argument through."""
-    if isinstance(node, (ast.Constant, ast.Subscript, ast.Name)):
+    if isinstance(node, (ast.Constant, ast.Subscript, ast.Name, ast.Compare)):
         return True
     if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.UAdd):
         return True
@@ -373,14 +469,18 @@ def _is_leaf(node, ctx: _Ctx) -> bool:
         func = node.func
         if isinstance(func, ast.Name) and func.id in ("float", "_c"):
             return True
-        return isinstance(func, ast.Attribute) and func.attr == "tensor"
+        return isinstance(func, ast.Attribute) and func.attr in (
+            "tensor", "logical_and", "logical_or", "logical_not")
     return False
 
 
 def _head_ops(node, ctx: _Ctx) -> dict:
     """The operations of a node itself, its children not counted, by name:
-    ``add`` (+ and −), ``mul``, ``div``, ``call`` (an f64/f32 library call)
-    and, in double-double, ``sqrt``, ``exp``, ``log`` and ``demoted`` (a
+    ``add`` (+ and −), ``mul``, ``div``, ``call`` (an f64/f32 library call),
+    ``special`` (a kernel B8 call: its operations depend on the route that
+    its argument takes, so a caller counts them on the arguments of a run,
+    :func:`inflatox_torch.lowering.special.route_operations`) and,
+    in double-double, ``sqrt``, ``exp``, ``log`` and ``demoted`` (a
     call made in f64); an integer power by its multiplies (and a division
     when negative), a ``pow`` in double-double as ``log``, ``mul``, ``exp``;
     a subexpression of constants only as nothing."""
@@ -395,6 +495,11 @@ def _head_ops(node, ctx: _Ctx) -> dict:
             n = _int_const(node.args[1])
             mults = abs(n).bit_length() - 1 + bin(abs(n)).count("1") - 1
             return {"mul": mults, "div": int(n < 0)}
+        if (isinstance(func, ast.Attribute) and isinstance(func.value, ast.Name)
+                and func.value.id == "_special"):
+            return {"special": 1}
+        if isinstance(func, ast.Attribute) and func.attr == "where":
+            return {}
         if isinstance(func, ast.Attribute) and func.attr != "tensor":
             if not ctx.dd:
                 return {"call": 1}
@@ -516,9 +621,38 @@ def _prelude(rn: bool = False, include: str = "") -> str:
     ``csrc/inflx_math.cuh`` and ``inflx_powi`` multiplies through
     ``inflx_mul``."""
     if rn:
-        return _PRELUDE.substitute(include='#include "inflx_math.cuh"\n',
+        return _PRELUDE.substitute(include='#include "inflx_math.cuh"\n' + include,
                                    acc_b="inflx_mul(acc, b)", b_b="inflx_mul(b, b)")
     return _PRELUDE.substitute(include=include, acc_b="acc * b", b_b="b * b")
+
+
+_SPECIAL_INCLUDE = '#include "special.cuh"\n'
+
+#: rows of a grid-scan block (``INFLX_ROWS`` in ``csrc/grid_scan.cu``) and the
+#: static shared memory a block may hold
+_GRID_ROWS = 16
+_STATIC_SHARED = 48 * 1024
+
+#: the model functions each scan kind evaluates (``inflx_uses_*`` in
+#: ``csrc/grid_scan.cu``)
+_KIND_FUNCTIONS = (("f_V", "f_hesse", "f_gsq"), ("f_V", "f_hesse"), ("f_V", "f_gsq"),
+                   ("f_V",), ("f_hesse",), ("f_grad",))
+
+
+def _check_shared(artifact, precision: str, n_rows: dict) -> None:
+    """Raise if a kind's row stages (``rows[INFLX_ROWS][nr]`` in
+    ``csrc/grid_scan.cu``) pass the 48 KB of static shared memory a block may
+    hold: nvcc would refuse the library."""
+    size = {"f64": 8, "f32": 4, "dd": 16}[precision]
+    worst = max(sum(n_rows[f] for f in fns) for fns in _KIND_FUNCTIONS)
+    need = _GRID_ROWS * worst * size
+    if need > _STATIC_SHARED:
+        name = getattr(artifact, "model_name", "<model>")
+        raise ValueError(
+            f'model "{name}" needs {worst} row values per grid row in precision '
+            f"{precision!r}: {need} bytes of static shared memory for {_GRID_ROWS} rows, "
+            f"more than the {_STATIC_SHARED} a block may hold"
+        )
 
 
 _SOLVER_SLOTS = ("const double* __restrict__ x, const double* __restrict__ xd, "
@@ -628,7 +762,7 @@ def _grid_fn(lowered, n_out, precision):
     return ctx.dag, outs, _stages(ctx.dag, outs)
 
 
-def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> str:
+def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> tuple:
     """One grid-scan model function of ``x`` and ``p`` as three stages and
     whole: ``<name>_row(x, p, r)`` writes the row values (``<NAME>_NR`` of
     them) from x[0], ``<name>_col(x, p, c)`` the column values
@@ -638,7 +772,8 @@ def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> str:
     share nothing (nvcc merges their repeats itself; B5a and B5b ran 5-10 %
     slower with the hash-consed nodes in their place, PERF.md).  With
     ``n_out`` None the function returns the lowered function's one output,
-    else it writes its ``n_out`` outputs to ``out[0..n_out-1]``."""
+    else it writes its ``n_out`` outputs to ``out[0..n_out-1]``.  Returns
+    (C text, number of row values)."""
     dag, outs, st = _grid_fn(lowered, n_out, precision)
     coord = "dd" if precision == "dd" else ("float" if precision == "f32" else "double")
     real = "double" if precision == "dd" else coord
@@ -671,7 +806,7 @@ def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> str:
         + point_head + "  (void)x; (void)p; (void)r; (void)c;\n" + reads
         + _lines(dag, st.point, coord) + tail(outs)
         + whole_head + "  (void)x; (void)p;\n" + whole + tail(whole_outs)
-    )
+    ), len(st.row_out)
 
 
 #: (header function, lowered function attribute, outputs written to out[],
@@ -691,13 +826,21 @@ def generate_header(artifact, precision: str = "f64") -> str:
         raise ValueError("the grid-scan kernel supports 2-field models")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
+    lowered = [getattr(artifact, attr) for _, attr, _ in _GRID_FUNCTIONS]
     include = '#include "dd.cuh"\n' if precision == "dd" else ""
+    if precision != "dd" and artifact.uses_special_functions:
+        include += _SPECIAL_INCLUDE
+    n_rows = {}
+    body = []
+    for (name, _, n_out), fn in zip(_GRID_FUNCTIONS, lowered):
+        text, n_rows[name] = _emit_grid_fn(name, fn, n_out, precision)
+        body.append(text)
+    _check_shared(artifact, precision, n_rows)
     return (
         _prelude(include=include)
         + f"#define INFLX_PRECISION {PRECISIONS[precision].id}\n"
         + f"#define INFLX_NP {artifact.n_parameters}\n\n"
-        + "".join(_emit_grid_fn(name, getattr(artifact, attr), n_out, precision)
-                  for name, attr, n_out in _GRID_FUNCTIONS)
+        + "".join(body)
     )
 
 
@@ -725,8 +868,9 @@ def grid_stage_ops(artifact, precision: str = "f64") -> dict:
 def generate_solver_header(artifact) -> str:
     """Emit the background-solver header for a :class:`CompiledModel` with
     any number of fields: ``f_eom_h`` and ``inflx_deriv``."""
+    include = _SPECIAL_INCLUDE if artifact.uses_special_functions else ""
     return (
-        _prelude(rn=True)
+        _prelude(rn=True, include=include)
         + f"#define INFLX_NF {artifact.n_fields}\n\n"
         + _emit_eom_h(artifact)
         + _emit_deriv(artifact)

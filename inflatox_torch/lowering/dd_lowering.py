@@ -14,7 +14,11 @@ double-double functions:
 * ``+ - * /`` and unary minus act on :class:`~inflatox_torch.ops.dd.DD`;
 * ``sqrt``, ``exp``, ``log``, ``pow``, ``abs``, ``maximum``, ``minimum``
   are double-double; every other function is evaluated in f64 on the
-  rounded value (``hi + lo``) and returned with ``lo = 0``.
+  rounded value (``hi + lo``) and returned with ``lo = 0``;
+* a Piecewise's comparisons order (hi, lo) pairs and its ``torch.where``
+  selects both words (``dd_where``);
+* a special function (``_special.*``) raises ``NotImplementedError``
+  naming it: none has a double-double evaluation.
 
 The CUDA header of kernels B4 and B5b
 (:func:`inflatox_torch.lowering.cuda_codegen.generate_header` with
@@ -41,6 +45,7 @@ from ..ops.dd import (
     dd_min,
     dd_pow,
     dd_sqrt,
+    dd_where,
     to_f64,
 )
 
@@ -96,12 +101,26 @@ def _demote(fn):
     return run
 
 
+class _NoSpecial:
+    """The ``_special`` of the double-double namespace: no special function
+    has a double-double evaluation (as the JAX package's tf32 engine,
+    ``inflatox_tpu/lowering/tf32.py:476-481``)."""
+
+    def __getattr__(self, name):
+        raise NotImplementedError(
+            f"special function {name!r} is not available in the double-double "
+            "engine (kernels B4, B5b, B7d); use precision='f64'"
+        )
+
+
 def _namespace() -> types.SimpleNamespace:
     funcs = {name: _demote(getattr(torch, name)) for name in DEMOTED}
     return types.SimpleNamespace(
         sqrt=dd_sqrt, exp=dd_exp, log=dd_log, pow=dd_pow, abs=dd_abs,
         maximum=dd_max, minimum=dd_min, atan2=_demote(torch.atan2),
         tensor=lambda value, dtype=None: as_dd(value), float64=torch.float64,
+        where=dd_where, logical_and=torch.logical_and, logical_or=torch.logical_or,
+        logical_not=torch.logical_not,
         **funcs,
     )
 
@@ -111,7 +130,7 @@ def compile_dd(lowered):
     positional sequences (of :class:`DD`, f64 tensors or numbers) and
     returns a :class:`DD` or a tuple of them."""
     tree = ast.Module(body=[dd_tree(lowered)], type_ignores=[])
-    namespace = {"torch": _namespace(), "_ipow": dd_ipow,
+    namespace = {"torch": _namespace(), "_ipow": dd_ipow, "_special": _NoSpecial(),
                  "_c": lambda v: DD(float(v), 0.0)}
     old = sys.getrecursionlimit()
     sys.setrecursionlimit(max(old, 100_000))

@@ -22,10 +22,20 @@ The printing rules are the JAX lowering's:
 * a source that still names ``math.``/``functools.`` is rejected at lower
   time.
 
+* ``Piecewise`` prints as nested ``torch.where``, its conditions taken in
+  sympy's order (the JAX printer's ``select``: the first true condition
+  wins, NaN where none holds); ``sinc`` as its Piecewise;
+* special functions (Bessel J/Y/I/K, spherical j/y, the hypergeometric
+  0F1/1F1/2F1/2F0, erf, erfc, loggamma, gamma, polygamma) print as
+  ``_special.<fn>`` calls (:mod:`inflatox_torch.lowering.special`), and
+  every distinct special call is hoisted into one ``cse_sf<k>`` local,
+  innermost first, whatever the ``cse`` flag says (``jax_lowering.py``'s
+  always-on special-call CSE, whose Bessel and hypergeometric heads are
+  joined here by the gamma family).
+
 XLA's ~1e-8 f64 libm patches (``inflatox_tpu/lowering/accmath.py``) have no
 counterpart: torch's f64 ``exp``/``atan``/``pow``/``sinh``/``cosh``/``acos``
-are pinned against mpmath in the tests instead.  Special functions (Bessel,
-hypergeometric, polygamma, erf, gamma) are not lowered yet (ROADMAP A8).
+are pinned against mpmath in the tests instead.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from sympy.printing.pycode import PythonCodePrinter
 
 from ..utils.errors import MissingSymbolError
+from . import special as _special_module
 from .registry import SymbolRegistry
 
 __all__ = ["LoweredFunction", "lower", "MaxCsesExceeded"]
@@ -74,18 +85,26 @@ _TORCH_FUNCS = {
     "ceiling": "ceil",
 }
 
-#: heads that wait for the special-function port (ROADMAP A8)
-_SPECIAL_NAMES = (
-    "besselj", "bessely", "besseli", "besselk", "jn", "yn", "hyper",
-    "polygamma", "digamma", "trigamma", "erf", "erfc", "gamma", "loggamma",
+#: special-function heads hoisted by the always-on special-call CSE: the JAX
+#: printer's Bessel and hypergeometric heads, and the gamma family, whose
+#: calls repeat by the dozen in a Hesse (Γ(y)'s derivatives are Γ·ψ⁽ⁿ⁾)
+_SPECIAL_HEADS = (
+    sympy.besselj,
+    sympy.bessely,
+    sympy.besseli,
+    sympy.besselk,
+    sympy.functions.special.bessel.jn,
+    sympy.functions.special.bessel.yn,
+    sympy.hyper,
+    sympy.erf,
+    sympy.erfc,
+    sympy.gamma,
+    sympy.loggamma,
+    sympy.polygamma,
 )
 
-
-def _special_not_ported(self, expr):
-    raise NotImplementedError(
-        f"{type(expr).__name__} has no torch lowering yet: special functions "
-        "are ROADMAP item A8 of the PyTorch port"
-    )
+#: the comparisons a Piecewise condition may hold
+_RELATIONS = {"<", "<=", ">", ">=", "==", "!="}
 
 
 class _ModelTorchPrinter(PythonCodePrinter):
@@ -206,17 +225,122 @@ class _ModelTorchPrinter(PythonCodePrinter):
             out = f"torch.minimum({a}, {out})"
         return out
 
+    # -- Piecewise and its conditions (C9) ---------------------------------- #
+
     def _print_Piecewise(self, expr):
-        raise NotImplementedError(
-            "Piecewise has no torch lowering; write the model without it"
+        """Nested ``torch.where``: the first condition that holds picks its
+        branch, NaN where none does (the JAX printer's ``select``)."""
+        out = "torch.tensor(float('nan'), dtype=torch.float64)"
+        for value, cond in reversed(expr.args):
+            if cond is sympy.true:
+                out = self._as_tensor(value)
+            elif cond is not sympy.false:
+                out = f"torch.where({self._print(cond)}, {self._as_tensor(value)}, {out})"
+        return out
+
+    def _print_Relational(self, expr):
+        if expr.rel_op not in _RELATIONS:
+            raise NotImplementedError(f"relation {expr.rel_op} in a Piecewise condition")
+        return f"({self._as_tensor(expr.lhs)} {expr.rel_op} {self._print(expr.rhs)})"
+
+    def _print_And(self, expr):
+        args = [self._print(a) for a in expr.args]
+        out = args[-1]
+        for a in reversed(args[:-1]):
+            out = f"torch.logical_and({a}, {out})"
+        return out
+
+    def _print_Or(self, expr):
+        args = [self._print(a) for a in expr.args]
+        out = args[-1]
+        for a in reversed(args[:-1]):
+            out = f"torch.logical_or({a}, {out})"
+        return out
+
+    def _print_Not(self, expr):
+        return f"torch.logical_not({self._print(expr.args[0])})"
+
+    def _print_sinc(self, expr):
+        x = expr.args[0]
+        return self._print(sympy.Piecewise((sympy.sin(x) / x, sympy.Ne(x, 0)), (1, True)))
+
+    # -- special functions → _special.* (jax_lowering.py:142-223) ------------ #
+
+    def _print_erf(self, expr):
+        return f"_special.erf({self._print(expr.args[0])})"
+
+    def _print_erfc(self, expr):
+        return f"_special.erfc({self._print(expr.args[0])})"
+
+    def _print_loggamma(self, expr):
+        return f"_special.lgamma({self._print(expr.args[0])})"
+
+    def _print_gamma(self, expr):
+        return f"_special.gamma({self._print(expr.args[0])})"
+
+    def _print_polygamma(self, expr):
+        n, z = expr.args
+        if not (n.is_Integer and int(n) >= 0):
+            raise NotImplementedError(
+                f"polygamma order must be a non-negative integer, got {n}"
+            )
+        return f"_special.polygamma({int(n)}, {self._print(z)})"
+
+    def _print_digamma(self, expr):
+        return f"_special.polygamma(0, {self._print(expr.args[0])})"
+
+    def _print_trigamma(self, expr):
+        return f"_special.polygamma(1, {self._print(expr.args[0])})"
+
+    def _print_besselj(self, expr):
+        nu, z = expr.args
+        return f"_special.besselj({self._print(nu)}, {self._print(z)})"
+
+    def _print_bessely(self, expr):
+        nu, z = expr.args
+        return f"_special.bessely({self._print(nu)}, {self._print(z)})"
+
+    def _print_besseli(self, expr):
+        nu, z = expr.args
+        return f"_special.besseli({self._print(nu)}, {self._print(z)})"
+
+    def _print_besselk(self, expr):
+        nu, z = expr.args
+        return f"_special.besselk({self._print(nu)}, {self._print(z)})"
+
+    def _print_jn(self, expr):
+        n, z = expr.args
+        return f"_special.sph_jn({self._print(n)}, {self._print(z)})"
+
+    def _print_yn(self, expr):
+        n, z = expr.args
+        return f"_special.sph_yn({self._print(n)}, {self._print(z)})"
+
+    def _print_hyper(self, expr):
+        """Same family coverage as the reference's GSL printer
+        (compiler.py:158-177)."""
+        ap, bq, z = expr.args
+        kind = (len(ap), len(bq))
+        a = [self._print(v) for v in ap]
+        b = [self._print(v) for v in bq]
+        zs = self._print(z)
+        if kind == (2, 0):
+            return f"_special.hyp2f0({a[0]}, {a[1]}, {zs})"
+        if kind == (2, 1):
+            return f"_special.hyp2f1({a[0]}, {a[1]}, {b[0]}, {zs})"
+        if kind == (1, 1):
+            return f"_special.hyp1f1({a[0]}, {b[0]}, {zs})"
+        if kind == (0, 1):
+            return f"_special.hyp0f1({b[0]}, {zs})"
+        raise Exception(
+            "Cannot compute hypergeometric functions other than 2F0, 2F1, "
+            "1F1 and 0F1"
         )
 
 
 for _head, _fn in _TORCH_FUNCS.items():
     setattr(_ModelTorchPrinter, f"_print_{_head}", _ModelTorchPrinter._print_Function)
-for _name in _SPECIAL_NAMES:
-    setattr(_ModelTorchPrinter, f"_print_{_name}", _special_not_ported)
-del _head, _fn, _name
+del _head, _fn
 
 
 def _ipow(base, n: int):
@@ -298,6 +422,26 @@ def lower(
     old_limit = sys.getrecursionlimit()
     sys.setrecursionlimit(max(old_limit, 100_000))
     try:
+        # always-on special-call CSE: every distinct special call (function,
+        # order, argument expression) becomes ONE local, innermost first,
+        # whatever the cse flag says
+        sf_map: dict = {}
+
+        def _hoist(e):
+            insts = e.atoms(*_SPECIAL_HEADS)
+            if not insts and not sf_map:
+                return e
+            for inst in sorted(
+                insts,
+                key=lambda i: (sympy.count_ops(i), sympy.default_sort_key(i)),
+            ):
+                if inst not in sf_map:
+                    rewritten = inst.xreplace(sf_map) if sf_map else inst
+                    sym = sympy.Symbol(f"cse_sf{len(sf_map)}")
+                    lines.append(f"    {sym} = {printer.doprint(rewritten)}")
+                    sf_map[inst] = sym
+            return e.xreplace(sf_map) if sf_map else e
+
         if cse:
             pairs, reduced = sympy.cse(
                 expr_list,
@@ -306,9 +450,9 @@ def lower(
                 list=True,
             )
             for sym, definition in pairs:
-                lines.append(f"    {sym} = {printer.doprint(definition)}")
+                lines.append(f"    {sym} = {printer.doprint(_hoist(definition))}")
             expr_list = list(reduced)
-        printed = [printer.doprint(e) for e in expr_list]
+        printed = [printer.doprint(_hoist(e)) for e in expr_list]
     finally:
         sys.setrecursionlimit(old_limit)
 
@@ -331,7 +475,7 @@ def lower(
             f"back to scalar {leak.group(1)}.{leak.group(2)}); add a "
             "_print_ override in lowering/torch_lowering.py"
         )
-    namespace = {"torch": torch, "_ipow": _ipow}
+    namespace = {"torch": torch, "_ipow": _ipow, "_special": _special_module}
     exec(compile(src, f"<inflatox-lowered:{name}>", "exec"), namespace)
     return LoweredFunction(
         fn=namespace[name],

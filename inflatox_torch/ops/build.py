@@ -11,6 +11,13 @@ Two libraries, each built per model from its sources in
   :meth:`~inflatox_torch.compiler.CompiledModel.cuda_solver_source`):
   kernel B6, any field count.
 
+Both include ``special.cuh`` (kernel B8, the special functions), which the
+generated headers call; its sums and products are non-fusing intrinsics,
+so it rounds alike under either library's flags.  A third library,
+``special_eval.cu`` (one per checkout, no generated header), evaluates each
+special function alone over a vector, for ``chip_smoke.py`` and the
+card-only tests.
+
 Each compiles into a shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas=-v
@@ -61,7 +68,7 @@ from pathlib import Path
 from typing import Callable
 
 __all__ = ["BUILD_ROOT", "CSRC", "NVCC_FLAGS", "find_nvcc", "load_grid_scan",
-           "load_solver"]
+           "load_solver", "load_special_eval"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "inflatox_torch_kernels"
@@ -164,6 +171,22 @@ def _bind_solver(lib: ctypes.CDLL) -> None:
     lib.inflx_n_fields.restype = ctypes.c_int
 
 
+def _bind_special_eval(lib: ctypes.CDLL) -> None:
+    from .special_eval import INSTANCES  # noqa: PLC0415
+
+    for name in INSTANCES:
+        fn = getattr(lib, f"inflx_sf_{name}")
+        fn.argtypes = [
+            ctypes.c_int,       # f32
+            ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,  # p0..p3
+            ctypes.c_void_p,    # z (device)
+            ctypes.c_void_p,    # out (device)
+            ctypes.c_int64,     # n
+            ctypes.c_void_p,    # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+
+
 @dataclass(frozen=True)
 class _Library:
     what: str  # for messages
@@ -174,10 +197,15 @@ class _Library:
     flags: tuple  # beyond NVCC_FLAGS
 
 
-_GRID_SCAN = _Library("grid-scan", "grid_scan.cu", ("grid_scan.cu", "anguelova.cuh", "dd.cuh"),
+_GRID_SCAN = _Library("grid-scan", "grid_scan.cu",
+                      ("grid_scan.cu", "anguelova.cuh", "dd.cuh", "special.cuh"),
                       "libinflx_grid_scan.so", _bind_grid_scan, ("-fmad=false",))
-_SOLVER = _Library("solver", "solver.cu", ("solver.cu", "solver.cuh", "inflx_math.cuh"),
+_SOLVER = _Library("solver", "solver.cu", ("solver.cu", "solver.cuh", "inflx_math.cuh",
+                                           "special.cuh"),
                    "libinflx_solver.so", _bind_solver, ())
+_SPECIAL_EVAL = _Library("special-function", "special_eval.cu", ("special_eval.cu", "special.cuh"),
+                         "libinflx_special_eval.so", _bind_special_eval,
+                         ("-fmad=false",))
 
 
 def _compile(spec: _Library, out_dir: Path, header_src: str) -> None:
@@ -239,6 +267,13 @@ def load_grid_scan(header_src: str) -> ctypes.CDLL:
     B5a, B2, or B4 and B5b), built on first use and loaded once per process
     (later calls are one dict lookup)."""
     return _load(_GRID_SCAN, header_src)
+
+
+def load_special_eval() -> ctypes.CDLL:
+    """The special-function library (``csrc/special_eval.cu``: kernel B8
+    alone, one entry per function instance), built on first use and loaded
+    once per process."""
+    return _load(_SPECIAL_EVAL, "")
 
 
 def load_solver(header_src: str) -> ctypes.CDLL:

@@ -74,6 +74,7 @@ from .anguelova import (
     consistency_rapidturn_only_op,
     epsilon_v_only_op,
 )
+from ..lowering.special import suppress_domain_warnings
 from .dd import DD, to_f64
 from .grid import grid_coords
 
@@ -200,7 +201,12 @@ def evaluate_points(artifact, kind, args, xs, precision: str = "f64") -> torch.T
         p = p.reshape(args.shape[1], args.shape[0], *(1,) * len(shape))
         shape = (args.shape[0], *shape)
     potential, grad_square, grad, hesse = _model_values(artifact, precision)
+    with suppress_domain_warnings():
+        return _evaluate(potential, grad_square, grad, hesse, kind, xs, p, shape, dtype, device,
+                         args.ndim)
 
+
+def _evaluate(potential, grad_square, grad, hesse, kind, xs, p, shape, dtype, device, ndim):
     def grid(val):
         # constant outputs of the lowering (numbers) and single-axis
         # expressions broadcast to the grid shape first; double-double
@@ -228,7 +234,7 @@ def evaluate_points(artifact, kind, args, xs, precision: str = "f64") -> torch.T
                 outs = (consistency_only_op(v, v00, v10, v11),)
             else:
                 outs = (consistency_rapidturn_only_op(v, v00, v10, v11),)
-    return torch.stack(outs, dim=args.ndim - 1)
+    return torch.stack(outs, dim=ndim - 1)
 
 
 def scan_torch(artifact, kind, args, extent, shape, device, precision: str = "f64") -> torch.Tensor:

@@ -41,6 +41,8 @@ import math
 import numpy as np
 import torch
 
+from ..lowering.special import suppress_domain_warnings
+
 __all__ = ["LAUNCHES", "METHODS", "derivative", "embedded", "rk_step",
            "solve_cuda", "solve_torch"]
 
@@ -163,6 +165,13 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
     Returns ``(rows, times)`` — (B, steps, 2n+1) and (B, steps) — and, with
     ``count_attempts=True``, also the (B,) number of attempts each
     trajectory made over its steps − 1 rows."""
+    with suppress_domain_warnings():
+        return _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err,
+                            solver, count_attempts)
+
+
+def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, solver,
+                 count_attempts):
     steps, max_err = _check(artifact, pars, steps, fields_init, derivatives_init,
                             max_err, solver)
     device = fields_init.device

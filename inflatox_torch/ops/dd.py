@@ -40,7 +40,8 @@ from fractions import Fraction
 import torch
 
 __all__ = ["DD", "EXP_DEGREE", "EXP_COEFFS", "LN2", "as_dd", "dd_abs", "dd_exp", "dd_ipow",
-           "dd_log", "dd_max", "dd_min", "dd_pow", "dd_sqrt", "to_f64", "two_prod", "two_sum"]
+           "dd_log", "dd_max", "dd_min", "dd_pow", "dd_sqrt", "dd_where", "to_f64", "two_prod",
+           "two_sum"]
 
 _SPLIT = 134217729.0  # 2^27 + 1, Dekker's splitter
 _INV_LN2 = 1.4426950408889634
@@ -132,6 +133,29 @@ class DD:
 
     def __rtruediv__(self, other):
         return _div(as_dd(other), self)
+
+    # comparisons of a Piecewise condition: (hi, lo) in lexicographic order,
+    # false with NaN (csrc/dd.cuh's dd_lt .. dd_ne)
+    def __gt__(self, other):
+        return _gt(self, as_dd(other))
+
+    def __lt__(self, other):
+        return _gt(as_dd(other), self)
+
+    def __ge__(self, other):
+        return _gt(self, as_dd(other)) | _eq(self, as_dd(other))
+
+    def __le__(self, other):
+        return _gt(as_dd(other), self) | _eq(self, as_dd(other))
+
+    def __eq__(self, other):
+        return _eq(self, as_dd(other))
+
+    def __ne__(self, other):
+        return ~_eq(self, as_dd(other)) & ~torch.isnan(_t(self.hi)) & ~torch.isnan(
+            _t(as_dd(other).hi, self.hi))
+
+    __hash__ = object.__hash__
 
     def __neg__(self):
         return DD(-self.hi, -self.lo)
@@ -299,6 +323,17 @@ def dd_abs(a) -> DD:
 def _gt(a: DD, b: DD):
     ah, bh = _t(a.hi), _t(b.hi, a.hi)
     return (ah > bh) | ((ah == bh) & (_t(a.lo, ah) > _t(b.lo, ah)))
+
+
+def _eq(a: DD, b: DD):
+    ah, bh = _t(a.hi), _t(b.hi, a.hi)
+    return (ah == bh) & (_t(a.lo, ah) == _t(b.lo, ah))
+
+
+def dd_where(cond, a, b) -> DD:
+    """``torch.where`` of a Piecewise on double-double values."""
+    a, b = as_dd(a), as_dd(b)
+    return _select(cond, a, b)
 
 
 def dd_max(a, b) -> DD:

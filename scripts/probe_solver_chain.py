@@ -349,13 +349,13 @@ def sass_counts(text):
 
 def parts_summary(c):
     """Attribution from a ``parts`` run's (batch, SLOTS) counts: attempts of
-    trajectory 0 (and the batch's most and mean), cycles per attempt of
+    trajectory 0 (and the batch's most, mean and total), cycles per attempt of
     each part for trajectory 0 and the batch mean, stamps per attempt, and
     the instrumented cycles per attempt of trajectory 0."""
     attempts = c[:, 1 + N_PARTS + 2]  # one error norm per attempt
     return {
         "attempts_traj0": int(attempts[0]), "attempts_max": int(attempts.max()),
-        "attempts_mean": float(attempts.mean()),
+        "attempts_mean": float(attempts.mean()), "attempts_total": int(attempts.sum()),
         "instrumented_cycles_per_attempt_traj0": float(c[0, 0]) / attempts[0],
         "parts_per_attempt_traj0": {part: float(c[0, 1 + k]) / attempts[0]
                                     for k, part in enumerate(PART_NAMES)},

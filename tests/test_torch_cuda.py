@@ -1,4 +1,4 @@
-"""Kernels B1, B2, B4, B5a, B5b, B6 and the batched B7a, B7b, B7d on the
+"""Kernels B1, B2, B4, B5a, B5b, B6, the batched B7a, B7b, B7d and B8 on the
 card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): they
@@ -392,3 +392,68 @@ def test_sweep_runs_the_batch_kernels_and_checkpoints_in_order(doc, cuda_device,
     reduced = parameter_sweep(al, batch, DOC_EXTENT, (64, 80), chunk_size=2, progress=False,
                               reduce_fn=nanmin)
     np.testing.assert_array_equal(reduced, np.nanmin(whole[:, 0], axis=(1, 2)))
+
+
+# --------------------------------------------------------------------------- #
+# kernel B8: the special functions, alone and inside B1, B2, B5a and B6        #
+# --------------------------------------------------------------------------- #
+
+_B8_PARAMS = {"besselj_nu": (12.7,), "bessely_nu": (-12.7,), "besseli_nu": (2.5,),
+              "besselk_nu": (0.3,), "sph_jn_nu": (2.3,), "sph_yn_nu": (2.3,),
+              "hyp0f1": (2.5,), "hyp1f1": (0.5, 1.5), "hyp2f1": (0.5, 1.5, 2.5),
+              "hyp2f0": (0.5, 1.0)}
+_B8_RANGE = {"hyp1f1": (-20.0, 20.0), "hyp2f1": (-0.95, 0.95), "hyp2f0": (-0.02, 0.02),
+             "erf": (-6.0, 6.0), "erfc": (-6.0, 7.0), "lgamma": (-7.9, 30.0),
+             "gamma": (-7.9, 30.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_b8_alone_matches_plain_torch(cuda_device, dtype):
+    """Every instance of csrc/special_eval.cu against the plain version on
+    the card: rtol 5e-10 (f64) or 1e-5 (f32), identical NaN/±inf masks."""
+    from inflatox_torch.ops import special_eval
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for name in special_eval.INSTANCES:
+        lo, hi = _B8_RANGE.get(name, (-7.9, 30.0) if name.startswith("polygamma")
+                               else (0.01, 60.0))
+        z = torch.empty(1 << 16, dtype=torch.float64, device=cuda_device).uniform_(
+            lo, hi, generator=gen).to(dtype)
+        params = _B8_PARAMS.get(name, ())
+        before = special_eval.LAUNCHES["B8"]
+        got = special_eval.special_eval_cuda(name, z, params)
+        assert special_eval.LAUNCHES["B8"] == before + 1
+        want = special_eval.special_eval_torch(name, z, params)
+        assert_maps_close(got.double(), want.double(),
+                          5e-10 if dtype == torch.float64 else 1e-5)
+
+
+def test_b8_inside_the_grid_point_and_solver_kernels(cuda_device):
+    """a·J₀(x)² + K₁(x+2)·y² + 2 through B1, B5a and B6 (each launch runs
+    B8 inside, since the model calls special functions), each against its
+    plain version."""
+    x, y, a = sympy.symbols("x y a")
+    model = inflatox_torch.InflationModelBuilder.new(
+        [x, y], [[1, 0], [0, 1]], a * sympy.besselj(0, x) ** 2
+        + sympy.besselk(1, x + 2) * y**2 + 2, silent=True, simplify=False,
+        assertions=False).build()
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    args, extent = np.array([2.0]), (0.5, 3.0, 0.2, 1.5)
+    assert art.uses_special_functions
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    solves = cuda_solver.LAUNCHES
+    got = scan_cuda(art, "complete_analysis", args, extent, (256, 256), cuda_device)
+    assert_maps_close(got, scan_torch(art, "complete_analysis", args, extent, (256, 256),
+                                      cuda_device))
+    pts = torch.rand(4096, 2, dtype=torch.float64, device=cuda_device) * 2 + 0.5
+    assert_maps_close(scan_points_cuda(art, "complete_analysis", args, pts),
+                      scan_points_torch(art, "complete_analysis", args, pts))
+    f0 = pts[:256].contiguous()
+    p = torch.tensor(args, device=cuda_device)
+    k_rows, k_t = solve_cuda(art, p, 20, f0, torch.zeros_like(f0))
+    p_rows, p_t = solve_torch(art, p, 20, f0, torch.zeros_like(f0))
+    assert_maps_close(torch.cat([k_rows, k_t[..., None]], -1),
+                      torch.cat([p_rows, p_t[..., None]], -1), 1e-12)
+    after = cuda_kernels.LAUNCHES_BY_KERNEL
+    assert (after["B1"] - before["B1"], after["B5a"] - before["B5a"]) == (1, 1)
+    assert cuda_solver.LAUNCHES == solves + 1

@@ -20,6 +20,8 @@ EXPORTS = {
     "background",
     "consistency_conditions",
     "parallel",
+    "log_info",
+    "log_warn",
 }
 
 MODULES = [
