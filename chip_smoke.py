@@ -89,10 +89,13 @@ passes or ends the script with a nonzero exit:
     against the plain version on the card (``lowering/special.py``: rtol
     5e-10, identical NaN/±inf masks, the bit-identical share reported) and
     in f32 (within 1e-5 of the largest value's 1e-3, identical masks), both
-    on the first 2^21 arguments (the plain Steed routes run some 9,000 torch
-    operations over the vector); 64 points per case against 40-digit
-    mpmath at tests/test_special.py's tolerances; each timed beside the
-    torch.special call that computes it, where there is one;
+    on the first 2^21 arguments, which begin with every route's branch
+    points, their neighbours, NaN, ±0 and ±inf; 64 points per case against
+    40-digit mpmath at tests/test_special.py's tolerances; each timed on
+    its arguments in random order and sorted (a warp whose lanes take
+    different routes runs each), beside the torch.special call that
+    computes it, where there is one, timed the same two ways; the cases'
+    numbers as one ``B8 cases:`` JSON line;
 23. S1 (bench cfg4b's 1F1 + 2F1 + erf·Γ potential at 1024² on its extent,
     nothing cut), S2 (a·J₀(x)² + K₁(x+2)·y² + 2) and S3 (a·J_{3/10}(x)² +
     K_{5/2}(x+2)·y² + 2) at 1024²: ``complete_analysis`` in f64 (kernel B1)
@@ -202,6 +205,11 @@ SF_PLAIN_N = 1 << 21  # the prefix held against the plain version (its Steed
 # routes run ~9,000 torch operations over the whole vector)
 SF_COUNT_N = 1 << 14  # arguments whose routes' operations are counted for the bound
 SF_MP_POINTS = 64  # points per function and per model against 40-digit mpmath
+# the branch points of B8's routes, at the head of each phase-22 vector with
+# their neighbours (J/Y's rational form to 5, K's series to 2, I's to 8,
+# Steed's Temme/CF2 at 2 and Hankel beyond 40, 1F1's direct/Kummer at 0, the
+# domains' edges at ±1, 300 and -32, ψ's shift to 16)
+SF_EDGES = (0.0, 1.0, 2.0, 5.0, 8.0, 16.0, 40.0, 300.0, -1.0, -32.0)
 SPECIAL_N = 1024  # S1-S3 grids (bench cfg4b's 1024², nothing cut)
 S1_EXTENT = (0.3, 2.0, 0.2, 1.2)  # bench cfg4b
 S2_EXTENT = (0.5, 3.0, 0.2, 1.5)  # tests/test_df32_special.py's Bessel models
@@ -1076,10 +1084,13 @@ def floored_error(got, want, frac, floor):
 
 def b8_alone(device, card):
     """Phase 22: kernel B8 alone over SF_N arguments per case, f64 and f32,
-    against its plain version on the card (the first SF_PLAIN_N), against
-    40-digit mpmath at SF_MP_POINTS points, timed beside the torch call that
-    computes the same function where there is one.  Returns the slowest f64
-    case's numbers for the kernel table."""
+    against its plain version on the card (the first SF_PLAIN_N, which
+    begin with every route's branch points, their neighbours, NaN, ±0 and
+    ±inf), against 40-digit mpmath at SF_MP_POINTS points, timed on the
+    arguments in random order and sorted (a warp whose lanes take different
+    routes pays for each; sorted, neighbouring lanes share theirs) beside
+    the torch call that computes the same function where there is one.
+    Returns the slowest f64 case's numbers for the kernel table."""
     import mpmath
     import numpy as np
     import torch
@@ -1090,10 +1101,16 @@ def b8_alone(device, card):
     special_eval.LAUNCHES["B8"] = 0
     library = torch_library()
     gen = torch.Generator(device=device).manual_seed(22)
-    slowest, worst_bits, lines = None, 1.0, []
+    edges = torch.tensor(SF_EDGES, dtype=torch.float64, device=device)
+    odd = torch.tensor([float("nan"), 0.0, -0.0, float("inf"), -float("inf")],
+                       dtype=torch.float64, device=device)
+    edges = torch.cat([edges, torch.nextafter(edges, edges - 1.0),
+                       torch.nextafter(edges, edges + 1.0), odd])
+    slowest, worst_bits, summary = None, 1.0, []
     for label, fn, inst, params, (lo, hi), mp_ref, tol, abs_floor, frac in b8_cases():
         z64 = torch.empty(SF_N, dtype=torch.float64, device=device).uniform_(lo, hi,
                                                                              generator=gen)
+        z64[:len(edges)] = edges
         k64 = special_eval_cuda(inst, z64, params)
         t = time.perf_counter()
         p64 = special_eval_torch(inst, z64[:SF_PLAIN_N], params)
@@ -1111,7 +1128,9 @@ def b8_alone(device, card):
         same32 = ((k32[:SF_PLAIN_N] == p32) | (k32[:SF_PLAIN_N].isnan() & p32.isnan())
                   ).double().mean().item()
         worst_bits = min(worst_bits, same, same32)
+        z_sorted = z64.sort().values
         ms = time_ms(lambda: special_eval_cuda(inst, z64, params), 10, 1)
+        ms_sorted = time_ms(lambda: special_eval_cuda(inst, z_sorted, params), 10, 1)
         # 40-digit mpmath at points of the range (Γ's and ψ's away from their poles)
         zs = np.linspace(lo, hi, 4 * SF_MP_POINTS + 1)[1:-1]
         if fn in ("lgamma", "gamma", "polygamma"):
@@ -1130,19 +1149,26 @@ def b8_alone(device, card):
             err = floored_error(got, want, frac, abs_floor)
             check(err <= tol, f"B8 {label}: {err:.3e} from 40-digit mpmath (tolerance {tol})")
             mp_err = f"{err:.3e} (tolerance {tol})"
-        lib_ms = None
+        lib_ms = lib_sorted = None
         if inst in library and not params:
             lib_ms = time_ms(lambda: library[inst](z64), 10, 1)
+            lib_sorted = time_ms(lambda: library[inst](z_sorted), 10, 1)
         # the operations each argument's route needs, on SF_COUNT_N evenly spaced arguments
         ops = special_ops([lambda z: special_eval_torch(inst, z, params)],
                           z64[::SF_N // SF_COUNT_N]).double().mean().item()
-        line = (f"B8 {label}: kernel {ms:.4f} ms at {SF_N} f64 arguments; plain torch "
+        line = (f"B8 {label}: kernel {ms:.4f} ms at {SF_N} f64 arguments in random order, "
+                f"{ms_sorted:.4f} ms sorted; plain torch "
                 f"{plain_s * 1e3:.1f} ms at the first {SF_PLAIN_N} (one call); f64 vs plain "
                 f"max_rel={rel:.3e} bit_identical={same:.6f}; f32 vs plain {err32:.3e} "
                 f"bit_identical={same32:.6f}; {len(zs)} points vs 40-digit mpmath {mp_err}; "
                 f"{ops:.2f} operations an argument (mean over {SF_COUNT_N})"
-                + (f"; torch.special's {lib_ms:.4f} ms" if lib_ms is not None else ""))
+                + (f"; torch.special's {lib_ms:.4f} ms, sorted {lib_sorted:.4f}"
+                   if lib_ms is not None else ""))
         print(line)
+        summary.append({"case": label, "ms": ms, "ms_sorted": ms_sorted, "library_ms": lib_ms,
+                        "library_ms_sorted": lib_sorted, "ops": ops,
+                        "bound_ms": bound(SF_N * 16, ops * SF_N)[0],
+                        "bit_identical": min(same, same32)})
         if slowest is None or ms > slowest["ms"]:
             slowest = {"label": label, "fn": fn, "inst": inst, "params": params, "ms": ms,
                        "ops": ops, "lo": lo, "hi": hi, "library_ms": lib_ms,
@@ -1158,6 +1184,7 @@ def b8_alone(device, card):
     slowest["plain_ms"] = (time.perf_counter() - t) * 1e3
     slowest["bound"] = bound(SF_N * 16, slowest["ops"] * SF_N)
     slowest["launches"] = special_eval.LAUNCHES["B8"]
+    print("B8 cases: " + json.dumps(summary))
     print(f"B8 alone on {card}: every case's kernel bit-identical share at least "
           f"{worst_bits:.6f} (f64 and f32); the slowest, {slowest['label']}, "
           f"{slowest['ms']:.4f} ms at {SF_N} arguments, plain torch {slowest['plain_ms']:.1f} ms "

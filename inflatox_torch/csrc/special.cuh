@@ -9,13 +9,29 @@
 // hyp2f0.  Hopper has IEEE f64, so the pairs are not carried over: B8 is the
 // plain version, inflatox_torch/lowering/special.py, repeated operation for
 // operation in the working type T (double for B1, B5a, B6, B7a; float for
-// B2, B7b): the same fixed trip counts, the same sums and products in the
-// same order, the same f64 constants rounded once to T, and every
-// torch.where a select between the same two values (both computed, as the
-// plain version computes them).  The generated model header
+// B2, B7b): the same sums and products in the same order, the same f64
+// constants rounded once to T.  The generated model header
 // (lowering/cuda_codegen.py) calls the inflx_* entries at the end of this
 // file; its hash-consing computes a call that repeats once, as the TPU's
 // call memo did.
+//
+// How the routes are chosen.  Each torch.where of the plain version between
+// two routes is a branch here on the same condition, and only the side that
+// the argument takes is computed: a NaN argument fails every comparison and
+// so takes the same side as the plain version's select.  The plain version
+// clamps each side's argument into its range (special.py's _minc/_maxc,
+// which keep NaN); on the side an argument takes, the clamp returns it as it
+// is, so the branch passes the argument itself.  Each loop that the plain version freezes under a mask
+// (Steed's three fractions and their recurrences, the fractional K's CF2,
+// the asymptotic sums, hyp2f0, polygamma's shift) is left where the mask
+// sets: the frozen steps changed nothing.  The power series of 0F1, 1F1 and
+// 2F1 stop where series_exit() shows that no later term can change the sum
+// (the plain version freezes its sum there, special.py's _series_settled).
+// The order-0 and order-1 Bessel functions J, Y and K are Cephes' rational
+// and Chebyshev forms (the algorithms of torch.special), one division or a
+// short Chebyshev sum an argument; integer |n| >= 2 recurs from them (J_n:
+// upward where |z| > |n|, else the Miller recurrence).  So B8 stays bit for
+// bit its plain version.
 //
 // Rounding: every + - * goes through isf::add_/sub_/mul_, which are
 // __dadd_rn/__fadd_rn and friends on the card (never fused into an FMA,
@@ -28,14 +44,13 @@
 // kernel and its plain version agree to the last bit wherever the libm
 // compiles alike in both (scripts/probe_special_libm.py measures that).
 //
-// What bounds it: operations.  The kernel computes both sides of every
-// select and every step of the fixed loops: from 1 (erf) to about 8,800
-// (a fractional-order J or Y) f64 operations a call.  An argument needs
-// only its own route and the loop steps before it converges, from 1 to
-// about 3,800 (operation_count() in special.py); the difference is the
-// kernel's own overhead.  The heavy routes (Steed's method, the 0F1 series, the fractional K, the
-// hypergeometric series) are __noinline__, so a model that calls them at
-// many sites compiles each once per kernel instance.
+// What bounds it: latency.  A call is a chain of dependent operations, from
+// 1 (erf) to a few thousand (a fractional-order J or Y near its turning
+// point; route_operations() in special.py counts each argument's), and the
+// callers give one thread an argument (B5a, B6) or one lane a row or column
+// (the grid stages).  The heavy routes (Steed's method, the 0F1 series, the
+// fractional J/Y/K, the hypergeometric series) are __noinline__, so a model
+// that calls them at many sites compiles each once per kernel instance.
 #pragma once
 #include <math.h>
 
@@ -138,9 +153,6 @@ ISF_UNARY(floor)
 ISF_UNARY(fabs)
 #undef ISF_UNARY
 
-// torch.where
-template <typename T>
-ISF_FN R<T> sel(bool c, R<T> a, R<T> b) { return c ? a : b; }
 // min/max against a number, keeping NaN (special.py's _minc/_maxc)
 template <typename T>
 ISF_FN R<T> minc(R<T> x, double c) { return x > R<T>(c) ? R<T>(c) : x; }
@@ -191,8 +203,24 @@ ISF_FN R<T> cheb_eval(const double (&c)[NC], R<T> t) {
   return t * d - dd + R<T>(c[0]);
 }
 
+// Cephes' polevl (Horner's rule from c[0]) and p1evl (an implied leading 1)
+template <typename T, int NC>
+ISF_FN R<T> polevl(R<T> x, const double (&c)[NC]) {
+  R<T> a = c[0];
+  for (int i = 1; i < NC; ++i) a = a * x + R<T>(c[i]);
+  return a;
+}
+template <typename T, int NC>
+ISF_FN R<T> p1evl(R<T> x, const double (&c)[NC]) {
+  R<T> a = x + R<T>(c[0]);
+  for (int i = 1; i < NC; ++i) a = a * x + R<T>(c[i]);
+  return a;
+}
+
+template <typename T>
+ISF_FN R<T> maxv(R<T> a, R<T> b) { return a > b ? a : b; }
+
 static constexpr double kPi = 3.141592653589793;
-static constexpr double kEulerGamma = 0.5772156649015329;
 
 // --------------------------------------------------------------------------
 // gamma family
@@ -232,86 +260,139 @@ template <int N, typename T>
 ISF_FN R<T> polygamma(R<T> x) {
   static_assert(N >= 0 && N <= kPsiMaxOrder, "polygamma order outside 0..8");
   typedef R<T> V;
+  if (x <= V(-32.0)) return nan_of<T>();
   const double sign = (N % 2 == 1) ? 1.0 : -1.0;
   const double fact = factorial<N>::v;
   V xs = x, acc = 0.0;
-  for (int i = 0; i < 48; ++i) {
-    const bool step = xs < V(16.0);
-    const V t = V(1.0) / powi<N + 1>(xs);
-    acc = step ? acc + t : acc;
-    xs = step ? xs + V(1.0) : xs;
+  for (int i = 0; i < 48; ++i) {  // up to x >= 16; the plain version's step
+    if (!(xs < V(16.0))) break;
+    acc = acc + V(1.0) / powi<N + 1>(xs);
+    xs = xs + V(1.0);
   }
   const V w = V(1.0) / (xs * xs);
   V ser = 0.0;
   for (int k = 11; k >= 0; --k) ser = (ser + V(kPsiCoef[N][k])) * w;
-  V out;
   if constexpr (N == 0) {
     const V asym = log(xs) - V(0.5) * (V(1.0) / xs) - ser;
-    out = asym - acc;
+    return asym - acc;
   } else {
     const V head = V(factorial<(N > 0 ? N - 1 : 0)>::v) + V(0.5 * fact) * (V(1.0) / xs);
     const V asym = V(sign) * ((head + ser) / powi<N>(xs));
-    out = asym + V(sign * fact) * acc;
+    return asym + V(sign * fact) * acc;
   }
-  return x <= V(-32.0) ? nan_of<T>() : out;
 }
 
 // --------------------------------------------------------------------------
 // hypergeometric family
 // --------------------------------------------------------------------------
 
+// The exit of a power series acc = Σ t_n (special.py's _series_settled),
+// after the step that computed the term t and acc2 = acc + t.  ok says that
+// every later ratio |t_{m+1}/t_m| is below kRatio (each series below proves
+// its bound), so the computed terms shrink from here on: with five roundings
+// a step the computed ratio is below kRatio (1 + 2^-23)^5 < 1 in f32 and f64.
+// If t also rounds away from acc on either side (acc2 == acc and
+// acc - t == acc), then so does every later term t', because acc + t' lies
+// between acc - |t| and acc + |t|, and rounding to nearest is monotone: acc
+// never changes again, and leaving the loop gives the full series' value bit
+// for bit.  acc != 0 keeps the sign of a zero sum as the full loop leaves it;
+// a NaN sum never compares equal, an infinite one with a finite t stays.
+static constexpr double kRatio = 0.99;
+template <typename T>
+ISF_FN bool series_exit(bool ok, R<T> acc, R<T> acc2, R<T> t) {
+  return ok && acc2 == acc && acc - t == acc && acc != R<T>(0.0);
+}
+
+// 0F1: t_{m+1}/t_m = z / ((b+m)(m+1)).  Once B = b+n+1 > 0, every later
+// factor has (b+m)(m+1) >= B (n+2), so |z| < kRatio B (n+2) bounds them all.
 template <typename T>
 ISF_HEAVY R<T> hyp0f1(R<T> b, R<T> z) {
-  R<T> term = 1.0, acc = 1.0;
+  typedef R<T> V;
+  V term = 1.0, acc = 1.0;
+  const V az = fabs(z);
+  bool ok = false;
   for (int n = 0; n < 96; ++n) {
     const double nf = n;
-    term = term * z / ((b + R<T>(nf)) * R<T>(nf + 1.0));
-    acc = acc + term;
+    term = term * z / ((b + V(nf)) * V(nf + 1.0));
+    const V acc2 = acc + term;
+    if (!ok) {
+      const V bb = b + V(nf + 1.0);
+      ok = bb > V(0.0) && az < bb * V(kRatio * (nf + 2.0));
+    }
+    if (series_exit(ok, acc, acc2, term)) break;
+    acc = acc2;
   }
   return acc;
 }
 
+// 1F1's series on z >= 0: t_{m+1}/t_m = (a+m) z / ((b+m)(m+1)).  Once
+// A = a+n+1 and B = b+n+1 are positive, (a+m)/(b+m) is monotone in m and
+// tends to 1, so it is at most max(A, B)/B for every later m, and 1/(m+1) at
+// most 1/(n+2): z max(A, B) < kRatio B (n+2) bounds every later ratio.
 template <typename T>
 ISF_FN R<T> hyp1f1_series(R<T> a, R<T> b, R<T> z) {
-  R<T> term = 1.0, acc = 1.0;
+  typedef R<T> V;
+  V term = 1.0, acc = 1.0;
+  bool ok = false;
   for (int n = 0; n < 420; ++n) {
     const double nf = n;
-    term = term * (a + R<T>(nf)) * z / ((b + R<T>(nf)) * R<T>(nf + 1.0));
-    acc = acc + term;
+    term = term * (a + V(nf)) * z / ((b + V(nf)) * V(nf + 1.0));
+    const V acc2 = acc + term;
+    if (!ok) {
+      const V aa = a + V(nf + 1.0), bb = b + V(nf + 1.0);
+      ok = aa > V(0.0) && bb > V(0.0) && z * maxv(aa, bb) < bb * V(kRatio * (nf + 2.0));
+    }
+    if (series_exit(ok, acc, acc2, term)) break;
+    acc = acc2;
   }
   return acc;
 }
 
+// the direct series for z >= 0, Kummer's e^z 1F1(b-a; b; -z) below
 template <typename T>
 ISF_HEAVY R<T> hyp1f1(R<T> a, R<T> b, R<T> z) {
   const R<T> zp = fabs(z);
-  const R<T> zc = minc(zp, 300.0);
-  const R<T> direct = hyp1f1_series(a, b, zc);
-  const R<T> kummer = exp(z) * hyp1f1_series(b - a, b, zc);
-  const R<T> out = z >= R<T>(0.0) ? direct : kummer;
-  return zp > R<T>(300.0) ? nan_of<T>() : out;
+  if (zp > R<T>(300.0)) return nan_of<T>();
+  if (z >= R<T>(0.0)) return hyp1f1_series(a, b, zp);
+  return exp(z) * hyp1f1_series(b - a, b, zp);
 }
 
+// 2F1: t_{m+1}/t_m = (a+m)(b+m) z / ((c+m)(m+1)).  Once A = a+n+1, B = b+n+1
+// and C = c+n+1 are positive, (a+m)/(c+m) <= max(A, C)/C and
+// (b+m)/(m+1) <= max(B, n+2)/(n+2) for every later m (each monotone, tending
+// to 1): |z| max(A, C) max(B, n+2) < kRatio C (n+2) bounds every later ratio.
 template <typename T>
 ISF_HEAVY R<T> hyp2f1(R<T> a, R<T> b, R<T> c, R<T> z) {
-  R<T> term = 1.0, acc = 1.0;
+  typedef R<T> V;
+  if (fabs(z) >= V(1.0)) return nan_of<T>();
+  V term = 1.0, acc = 1.0;
+  const V az = fabs(z);
+  const bool may = az < V(kRatio);  // else the ratios tend to |z| >= kRatio
+  bool ok = false;
   for (int n = 0; n < 700; ++n) {
     const double nf = n;
-    term = term * (a + R<T>(nf)) * (b + R<T>(nf)) * z / ((c + R<T>(nf)) * R<T>(nf + 1.0));
-    acc = acc + term;
+    term = term * (a + V(nf)) * (b + V(nf)) * z / ((c + V(nf)) * V(nf + 1.0));
+    const V acc2 = acc + term;
+    if (may && !ok) {
+      const V aa = a + V(nf + 1.0), bb = b + V(nf + 1.0), cc = c + V(nf + 1.0);
+      ok = aa > V(0.0) && bb > V(0.0) && cc > V(0.0) &&
+           az * maxv(aa, cc) * maxv(bb, V(nf + 2.0)) < cc * V(kRatio * (nf + 2.0));
+    }
+    if (series_exit(ok, acc, acc2, term)) break;
+    acc = acc2;
   }
-  return fabs(z) >= R<T>(1.0) ? nan_of<T>() : acc;
+  return acc;
 }
 
+// summed until the terms start to grow (the plain version's growing mask)
 template <typename T>
 ISF_HEAVY R<T> hyp2f0(R<T> a, R<T> b, R<T> z) {
   R<T> term = 1.0, acc = 1.0;
-  bool growing = false;
   for (int n = 0; n < 96; ++n) {
     const double nf = n;
     const R<T> new_term = term * (a + R<T>(nf)) * (b + R<T>(nf)) * z / R<T>(nf + 1.0);
-    growing = growing || (fabs(new_term) > fabs(term));
-    acc = growing ? acc : acc + new_term;
+    if (fabs(new_term) > fabs(term)) break;
+    acc = acc + new_term;
     term = new_term;
   }
   return acc;
@@ -390,10 +471,11 @@ template <bool FIRST, typename T, int NA, int NB>
 ISF_FN R<T> ie(R<T> x, const double (&a)[NA], const double (&b)[NB], int na32, int nb32) {
   const bool f32 = sizeof(T) == 4;
   const R<T> ax = fabs(x);
-  R<T> le = chbevl(R<T>(0.5) * ax - R<T>(2.0), a, f32 ? NA - na32 : 0);
-  if (!FIRST) le = le * ax;
-  const R<T> gt = chbevl(R<T>(32.0) / ax - R<T>(2.0), b, f32 ? NB - nb32 : 0) / sqrt(ax);
-  return ax <= R<T>(8.0) ? le : gt;
+  if (ax <= R<T>(8.0)) {
+    const R<T> le = chbevl(R<T>(0.5) * ax - R<T>(2.0), a, f32 ? NA - na32 : 0);
+    return FIRST ? le : le * ax;
+  }
+  return chbevl(R<T>(32.0) / ax - R<T>(2.0), b, f32 ? NB - nb32 : 0) / sqrt(ax);
 }
 
 template <typename T>
@@ -407,13 +489,215 @@ ISF_FN R<T> i1(R<T> x) {
 }
 
 // --------------------------------------------------------------------------
+// order 0 and 1: Cephes' j0.c, j1.c, k0.c and k1.c (special.py's _j0 ... _k1)
+// --------------------------------------------------------------------------
+
+ISF_TABLE kJ0RP[4] = {-4.79443220978201773821E9, 1.95617491946556577543E12,
+                      -2.49248344360967716204E14, 9.70862251047306323952E15};
+ISF_TABLE kJ0RQ[8] = {4.99563147152651017219E2,  1.73785401676374683123E5,
+                      4.84409658339962045305E7,  1.11855537045356834862E10,
+                      2.11277520115489217587E12, 3.10518229857422583814E14,
+                      3.18121955943204943306E16, 1.71086294081043136091E18};
+static constexpr double kJ0DR1 = 5.78318596294678452118E0, kJ0DR2 = 3.04712623436620863991E1;
+ISF_TABLE kJ1RP[4] = {-8.99971225705559398224E8, 4.52228297998194034323E11,
+                      -7.27494245221818276015E13, 3.68295732863852883286E15};
+ISF_TABLE kJ1RQ[8] = {6.20836478118054335476E2,  2.56987256757748830383E5,
+                      8.35146791431949253037E7,  2.21511595479792499675E10,
+                      4.74914122079991414898E12, 7.84369607876235854894E14,
+                      8.95222336184627338078E16, 5.32278620332680085395E18};
+static constexpr double kJ1Z1 = 1.46819706421238932572E1, kJ1Z2 = 4.92184563216946036703E1;
+ISF_TABLE kY0YP[8] = {1.55924367855235737965E4,   -1.46639295903971606143E7,
+                      5.43526477051876500413E9,   -9.82136065717911466409E11,
+                      8.75906394395366999549E13,  -3.46628303384729719441E15,
+                      4.42733268572569800351E16,  -1.84950800436986690637E16};
+ISF_TABLE kY0YQ[7] = {1.04128353664259848412E3,  6.26107330137134956842E5,
+                      2.68919633393814121987E8,  8.64002487103935000337E10,
+                      2.02979612750105546709E13, 3.17157752842975028269E15,
+                      2.50596256172653059228E17};
+ISF_TABLE kY1YP[6] = {1.26320474790178026440E9,  -6.47355876379160291031E11,
+                      1.14509511541823727583E14, -8.12770255501325109621E15,
+                      2.02439475713594898196E17, -7.78877196265950026825E17};
+ISF_TABLE kY1YQ[8] = {5.94301592346128195359E2,  2.35564092943068577943E5,
+                      7.34811944459721705660E7,  1.87601316108706159478E10,
+                      3.88231277496238566008E12, 6.20557727146953693363E14,
+                      6.87141087355300489866E16, 3.97270608116560655612E18};
+// the modulus and phase forms above 5, order 0 and 1 (QQ: p1evl's)
+ISF_TABLE kJYPP[2][7] = {
+    {7.96936729297347051624E-4, 8.28352392107440799803E-2, 1.23953371646414299388E0,
+     5.44725003058768775090E0, 8.74716500199817011941E0, 5.30324038235394892183E0,
+     9.99999999999999997821E-1},
+    {7.62125616208173112003E-4, 7.31397056940917570436E-2, 1.12719608129684925192E0,
+     5.11207951146807644818E0, 8.42404590141772420927E0, 5.21451598682361504063E0,
+     1.00000000000000000254E0}};
+ISF_TABLE kJYPQ[2][7] = {
+    {9.24408810558863637013E-4, 8.56288474354474431428E-2, 1.25352743901058953537E0,
+     5.47097740330417105182E0, 8.76190883237069594232E0, 5.30605288235394617618E0,
+     1.00000000000000000218E0},
+    {5.71323128072548699714E-4, 6.88455908754495404082E-2, 1.10514232634061696926E0,
+     5.07386386128601488557E0, 8.39985554327604159757E0, 5.20982848682361821619E0,
+     9.99999999999999997461E-1}};
+ISF_TABLE kJYQP[2][8] = {
+    {-1.13663838898469149931E-2, -1.28252718670509318512E0, -1.95539544257735972385E1,
+     -9.32060152123768231369E1, -1.77681167980488050595E2, -1.47077505154951170175E2,
+     -5.14105326766599330220E1, -6.05014350600728481186E0},
+    {5.10862594750176621635E-2, 4.98213872951233449420E0, 7.58238284132545283818E1,
+     3.66779609360150777800E2, 7.10856304998926107277E2, 5.97489612400613639965E2,
+     2.11688757100572135698E2, 2.52070205858023719784E1}};
+ISF_TABLE kJYQQ[2][7] = {
+    {6.43178256118178023184E1, 8.56430025976980587198E2, 3.88240183605401609683E3,
+     7.24046774195652478189E3, 5.93072701187316984827E3, 2.06209331660327847417E3,
+     2.42005740240291393179E2},
+    {7.42373277035675149943E1, 1.05644886038262816351E3, 4.98641058337653607651E3,
+     9.56231892404756170795E3, 7.99704160447350683650E3, 2.82619278517639096600E3,
+     3.36093607810698293419E2}};
+ISF_TABLE kJYPhase[2] = {7.85398163397448309616E-1, 2.35619449019234492885E0};  // π/4, 3π/4
+static constexpr double kSq2OPi = 7.9788456080286535587989E-1;  // √(2/π)
+static constexpr double kTwoOPi = 6.36619772367581343075535E-1;  // 2/π
+ISF_TABLE kK0A[10] = {1.37446543561352307156E-16, 4.25981614279661018399E-14,
+                      1.03496952576338420167E-11, 1.90451637722020886025E-9,
+                      2.53479107902614945675E-7,  2.28621210311945178607E-5,
+                      1.26461541144692592338E-3,  3.59799365153615016266E-2,
+                      3.44289899924628486886E-1,  -5.35327393233902768720E-1};
+ISF_TABLE kK0B[25] = {
+    5.30043377268626276149E-18,  -1.64758043015242134646E-17, 5.21039150503902756861E-17,
+    -1.67823109680541210385E-16, 5.51205597852431940784E-16,  -1.84859337734377901440E-15,
+    6.34007647740507060557E-15,  -2.22751332699166985548E-14, 8.03289077536357521100E-14,
+    -2.98009692317273043925E-13, 1.14034058820847496303E-12,  -4.51459788337394416547E-12,
+    1.85594911495471785253E-11,  -7.95748924447710747776E-11, 3.57739728140030116597E-10,
+    -1.69753450938905987466E-9,  8.57403401741422608519E-9,   -4.66048989768794782956E-8,
+    2.76681363944501510342E-7,   -1.83175552271911948767E-6,  1.39498137188764993662E-5,
+    -1.28495495816278026384E-4,  1.56988388573005337491E-3,   -3.14481013119645005427E-2,
+    2.44030308206595545468E0};
+ISF_TABLE kK1A[11] = {-7.02386347938628759343E-18, -2.42744985051936593393E-15,
+                      -6.66690169419932900609E-13, -1.41148839263352776110E-10,
+                      -2.21338763073472585583E-8,  -2.43340614156596823496E-6,
+                      -1.73028895751305206302E-4,  -6.97572385963986435018E-3,
+                      -1.22611180822657148235E-1,  -3.53155960776544875667E-1,
+                      1.52530022733894777053E0};
+ISF_TABLE kK1B[25] = {
+    -5.75674448366501715755E-18, 1.79405087314755922667E-17,  -5.68946255844285935196E-17,
+    1.83809354436663880070E-16,  -6.05704724837331885336E-16, 2.03870316562433424052E-15,
+    -7.01983709041831346144E-15, 2.47715442448130437068E-14,  -8.97670518232499435011E-14,
+    3.34841966607842919884E-13,  -1.28917396095102890680E-12, 5.13963967348173025100E-12,
+    -2.12996783842756842877E-11, 9.21831518760500529508E-11,  -4.19035475934189648750E-10,
+    2.01504975519703286596E-9,   -1.03457624656780970260E-8,  5.74108412545004946722E-8,
+    -3.50196060308781257119E-7,  2.40648494783721712015E-6,   -1.93619797416608296024E-5,
+    1.95215518471351631108E-4,   -2.85781685962277938680E-3,  1.03923736576817238437E-1,
+    2.72062619048444266945E0};
+
+// J_0 for |x| <= 5: (x² - j01²)(x² - j02²) P(x²)/Q(x²)
+template <typename T>
+ISF_FN R<T> j0_small(R<T> x) {
+  typedef R<T> V;
+  const V z = x * x;
+  return (z - V(kJ0DR1)) * (z - V(kJ0DR2)) * polevl(z, kJ0RP) / p1evl(z, kJ0RQ);
+}
+
+// J_1 for |x| <= 5, odd in x
+template <typename T>
+ISF_FN R<T> j1_small(R<T> x) {
+  typedef R<T> V;
+  const V z = x * x;
+  return polevl(z, kJ1RP) / p1evl(z, kJ1RQ) * x * (z - V(kJ1Z1)) * (z - V(kJ1Z2));
+}
+
+// J_N (J) or Y_N, N = 0, 1, for x > 5: √(2/(πx)) (P cos ξ - (5/x) Q sin ξ)
+template <int N, bool J, typename T>
+ISF_FN R<T> jy01_big(R<T> x) {
+  typedef R<T> V;
+  const V w = V(5.0) / x;
+  const V z = w * w;
+  V p = polevl(z, kJYPP[N]) / polevl(z, kJYPQ[N]);
+  const V q = polevl(z, kJYQP[N]) / p1evl(z, kJYQQ[N]);
+  const V xn = x - V(kJYPhase[N]);
+  if constexpr (J) {
+    p = p * cos(xn) - w * q * sin(xn);
+  } else {
+    p = p * sin(xn) + w * q * cos(xn);
+  }
+  return p * V(kSq2OPi) / sqrt(x);
+}
+
+template <typename T>
+ISF_FN R<T> bessel_j0(R<T> x) {
+  const R<T> ax = fabs(x);
+  if (ax <= R<T>(5.0)) return j0_small(ax);
+  return jy01_big<0, true>(ax);
+}
+
+template <typename T>
+ISF_FN R<T> bessel_j1(R<T> x) {
+  const R<T> ax = fabs(x);
+  if (ax <= R<T>(5.0)) return j1_small(x);
+  const R<T> big = jy01_big<1, true>(ax);
+  return x < R<T>(0.0) ? -big : big;
+}
+
+// Y_0, Y_1 for x > 0
+template <typename T>
+ISF_FN R<T> bessel_y0(R<T> x) {
+  typedef R<T> V;
+  if (x <= V(5.0)) {
+    const V z = x * x;
+    return polevl(z, kY0YP) / p1evl(z, kY0YQ) + V(kTwoOPi) * log(x) * j0_small(x);
+  }
+  return jy01_big<0, false>(x);
+}
+
+template <typename T>
+ISF_FN R<T> bessel_y1(R<T> x) {
+  typedef R<T> V;
+  if (x <= V(5.0)) {
+    const V z = x * x;
+    return x * (polevl(z, kY1YP) / p1evl(z, kY1YQ)) +
+           V(kTwoOPi) * (j1_small(x) * log(x) - V(1.0) / x);
+  }
+  return jy01_big<1, false>(x);
+}
+
+// K_0, K_1 for x > 0
+template <typename T>
+ISF_FN R<T> bessel_k0(R<T> x) {
+  typedef R<T> V;
+  if (x <= V(2.0)) return chbevl(x * x - V(2.0), kK0A, 0) - log(V(0.5) * x) * i0(x);
+  return exp(-x) * chbevl(V(8.0) / x - V(2.0), kK0B, 0) / sqrt(x);
+}
+
+template <typename T>
+ISF_FN R<T> bessel_k1(R<T> x) {
+  typedef R<T> V;
+  if (x <= V(2.0)) return log(V(0.5) * x) * i1(x) + chbevl(x * x - V(2.0), kK1A, 0) / x;
+  return exp(-x) * chbevl(V(8.0) / x - V(2.0), kK1B, 0) / sqrt(x);
+}
+
+// --------------------------------------------------------------------------
 // Bessel family
 // --------------------------------------------------------------------------
 
+// J_N, a static integer order: |N| >= 2 upward from J_0, J_1 where |z| > |N|
+// (stable: k < |z| at every step), else JAX's Miller recurrence
 template <int N, typename T>
 ISF_FN R<T> bessel_j_int(R<T> z) {
+  typedef R<T> V;
   constexpr int n = N < 0 ? -N : N;
-  const R<T> out = bessel_jn<n>(z);
+  V out;
+  if constexpr (n == 0) {
+    out = bessel_j0(z);
+  } else if constexpr (n == 1) {
+    out = bessel_j1(z);
+  } else {
+    if (fabs(z) > V((double)n)) {
+      V prev = bessel_j0(z), cur = bessel_j1(z);
+      for (int k = 1; k < n; ++k) {
+        const V next = (V(2.0 * k) / z) * cur - prev;
+        prev = cur;
+        cur = next;
+      }
+      out = cur;
+    } else {
+      out = bessel_jn<n>(z);
+    }
+  }
   if constexpr (N < 0 && (n % 2) == 1) {
     return -out;
   } else {
@@ -452,10 +736,12 @@ struct JY {
   R<T> j, y;
 };
 
-// (J_ν(x), Y_ν(x)), ν >= 0, x > 0: Steed's method (special.py's _bessjy_steed)
+// (J_ν(x), Y_ν(x)), ν >= 0, x > 0: Steed's method (special.py's
+// _bessjy_steed); Y_ν's upward recurrence only when need_y
 template <typename T>
-ISF_HEAVY JY<T> bessjy_steed(R<T> nu, R<T> x) {
+ISF_HEAVY JY<T> bessjy_steed(R<T> nu, R<T> x, bool need_y) {
   typedef R<T> V;
+  if (x <= V(0.0)) return {nan_of<T>(), nan_of<T>()};
   const double tiny = 1e-30;
   const V xs = x > V(0.0) ? x : V(1.0);
   V nl = xs < V(2.0) ? floor(nu + V(0.5)) : maxc(floor(nu - xs + V(1.5)), 0.0);
@@ -465,172 +751,144 @@ ISF_HEAVY JY<T> bessjy_steed(R<T> nu, R<T> x) {
   const V xi = V(1.0) / xs;
   const V xi2 = V(2.0) * xi;
 
-  // CF1
+  // CF1, left where it converges (the plain version's done)
   const V h0 = maxc(nu * xi, tiny);
   V b = xi2 * nu, c = h0, d = 0.0, h = h0, isign = 1.0;
-  bool done = false;
   for (int i = 1; i < 100; ++i) {
-    const V b2 = b + xi2;
-    V d2 = b2 - d;
+    b = b + xi2;
+    V d2 = b - d;
     d2 = fabs(d2) < V(tiny) ? V(tiny) : d2;
-    V c2 = b2 - V(1.0) / c;
+    V c2 = b - V(1.0) / c;
     c2 = fabs(c2) < V(tiny) ? V(tiny) : c2;
-    d2 = V(1.0) / d2;
-    const V dl = c2 * d2;
-    const V h2 = h * dl;
-    isign = (d2 < V(0.0)) && !done ? -isign : isign;
-    const bool conv = fabs(dl - V(1.0)) < V(1e-16);
-    b = done ? b : b2;
-    c = done ? c : c2;
-    d = done ? d : d2;
-    h = done ? h : h2;
-    done = done || conv;
+    d = V(1.0) / d2;
+    c = c2;
+    const V dl = c * d;
+    h = h * dl;
+    isign = d < V(0.0) ? -isign : isign;
+    if (fabs(dl - V(1.0)) < V(1e-16)) break;
   }
 
-  // downward recurrence
+  // downward recurrence, nl steps
   V rjl = isign * V(tiny);
   V rjpl = h * rjl;
   const V rjl1 = rjl;
   V fact = nu * xi;
   for (int i = 0; i < 30; ++i) {
-    const bool step = nl > V((double)i);
+    if (!(nl > V((double)i))) break;
     const V rjtemp = fact * rjl + rjpl;
-    const V fact2 = fact - xi;
-    const V rjpl2 = fact2 * rjtemp - rjl;
-    rjl = step ? rjtemp : rjl;
-    rjpl = step ? rjpl2 : rjpl;
-    fact = step ? fact2 : fact;
+    fact = fact - xi;
+    rjpl = fact * rjtemp - rjl;
+    rjl = rjtemp;
   }
   rjl = rjl == V(0.0) ? V(tiny) : rjl;
   const V f = rjpl / rjl;
 
-  // small x: Temme's series
-  const V xc = minc(xs, 2.0);
-  const V x2 = V(0.5) * xc;
-  const V pimu = V(kPi) * xmu;
-  const V fact_t = fabs(pimu) < V(1e-15) ? V(1.0) : pimu / sin(pimu);
-  const V dd = -log(x2);
-  const V e = xmu * dd;
-  const V fact2_t = fabs(e) < V(1e-15) ? V(1.0) : sinh(e) / e;
-  const V tg = V(2.0) * xmu;
-  const V gam1 = cheb_eval(kTemmeG1, tg);
-  const V gam2 = cheb_eval(kTemmeG2, tg);
-  V ff = V(2.0 / kPi) * fact_t * (gam1 * cosh(e) + gam2 * fact2_t * dd);
-  const V ee = exp(e);
-  const V gampl = gam2 - xmu * gam1;
-  const V gammi = gam2 + xmu * gam1;
-  V pt = ee / (gampl * V(kPi));
-  V qt = V(1.0) / (ee * V(kPi) * gammi);
-  const V pimu2 = V(0.5) * pimu;
-  const V fact3 = fabs(pimu2) < V(1e-15) ? V(1.0) : sin(pimu2) / pimu2;
-  const V rr = V(kPi) * pimu2 * fact3 * fact3;
-  const V dd2 = -x2 * x2;
-  V cc = 1.0;
-  V ssum = ff + rr * qt;
-  V ssum1 = pt;
-  done = false;
-  for (int i = 1; i < 100; ++i) {
-    const double fi = i;
-    const V ff2 = (V(fi) * ff + pt + qt) / (V(fi * fi) - xmu2);
-    const V cc2 = cc * dd2 / V(fi);
-    const V pt2 = pt / (V(fi) - xmu);
-    const V qt2 = qt / (V(fi) + xmu);
-    const V dl = cc2 * (ff2 + rr * qt2);
-    const V ssum2 = ssum + dl;
-    const V dl1 = cc2 * pt2 - V(fi) * dl;
-    const V ssum12 = ssum1 + dl1;
-    const bool conv = fabs(dl) < (V(1.0) + fabs(ssum2)) * V(1e-17);
-    ff = done ? ff : ff2;
-    cc = done ? cc : cc2;
-    pt = done ? pt : pt2;
-    qt = done ? qt : qt2;
-    ssum = done ? ssum : ssum2;
-    ssum1 = done ? ssum1 : ssum12;
-    done = done || conv;
+  V rjmu, rymu = 0.0, ry1 = 0.0;
+  if (xs < V(2.0)) {
+    // small x: Temme's series
+    const V x2 = V(0.5) * xs;
+    const V pimu = V(kPi) * xmu;
+    const V fact_t = fabs(pimu) < V(1e-15) ? V(1.0) : pimu / sin(pimu);
+    const V dd = -log(x2);
+    const V e = xmu * dd;
+    const V fact2_t = fabs(e) < V(1e-15) ? V(1.0) : sinh(e) / e;
+    const V tg = V(2.0) * xmu;
+    const V gam1 = cheb_eval(kTemmeG1, tg);
+    const V gam2 = cheb_eval(kTemmeG2, tg);
+    V ff = V(2.0 / kPi) * fact_t * (gam1 * cosh(e) + gam2 * fact2_t * dd);
+    const V ee = exp(e);
+    const V gampl = gam2 - xmu * gam1;
+    const V gammi = gam2 + xmu * gam1;
+    V pt = ee / (gampl * V(kPi));
+    V qt = V(1.0) / (ee * V(kPi) * gammi);
+    const V pimu2 = V(0.5) * pimu;
+    const V fact3 = fabs(pimu2) < V(1e-15) ? V(1.0) : sin(pimu2) / pimu2;
+    const V rr = V(kPi) * pimu2 * fact3 * fact3;
+    const V dd2 = -x2 * x2;
+    V cc = 1.0;
+    V ssum = ff + rr * qt;
+    V ssum1 = pt;
+    for (int i = 1; i < 100; ++i) {
+      const double fi = i;
+      ff = (V(fi) * ff + pt + qt) / (V(fi * fi) - xmu2);
+      cc = cc * dd2 / V(fi);
+      pt = pt / (V(fi) - xmu);
+      qt = qt / (V(fi) + xmu);
+      const V dl = cc * (ff + rr * qt);
+      ssum = ssum + dl;
+      const V dl1 = cc * pt - V(fi) * dl;
+      ssum1 = ssum1 + dl1;
+      if (fabs(dl) < (V(1.0) + fabs(ssum)) * V(1e-17)) break;
+    }
+    rymu = -ssum;
+    ry1 = -ssum1 * (V(2.0) / xs);
+    const V rymup = xmu / xs * rymu - ry1;
+    const V w_small = V(2.0) / (V(kPi) * xs);
+    rjmu = w_small / (rymup - f * rymu);
+  } else {
+    // large x: the complex CF2
+    const V xib = V(1.0) / xs;
+    V a = V(0.25) - xmu2;
+    V pc = V(-0.5) * xib;
+    V qc = 1.0;
+    const V br = V(2.0) * xs;
+    V bi = 2.0;
+    const V fact_c = a * xib / (pc * pc + qc * qc);
+    V cr = br + qc * fact_c;
+    V ci = bi + pc * fact_c;
+    const V den0 = br * br + bi * bi;
+    V dr = br / den0;
+    V di = -bi / den0;
+    V dlr = cr * dr - ci * di;
+    V dli = cr * di + ci * dr;
+    V temp = pc * dlr - qc * dli;
+    qc = pc * dli + qc * dlr;
+    pc = temp;
+    for (int i = 2; i < 100; ++i) {
+      const double fi = i;
+      a = a + V(2.0 * (fi - 1.0));
+      bi = bi + V(2.0);
+      V dr2 = a * dr + br;
+      const V di2 = a * di + bi;
+      dr2 = (fabs(dr2) + fabs(di2)) < V(tiny) ? V(tiny) : dr2;
+      const V fct = a / (cr * cr + ci * ci);
+      cr = br + cr * fct;
+      ci = bi - ci * fct;
+      cr = (fabs(cr) + fabs(ci)) < V(tiny) ? V(tiny) : cr;
+      const V den = dr2 * dr2 + di2 * di2;
+      dr = dr2 / den;
+      di = -di2 / den;
+      dlr = cr * dr - ci * di;
+      dli = cr * di + ci * dr;
+      temp = pc * dlr - qc * dli;
+      qc = pc * dli + qc * dlr;
+      pc = temp;
+      if ((fabs(dlr - V(1.0)) + fabs(dli)) < V(1e-16)) break;
+    }
+    const V gam = (pc - f) / qc;
+    const V w_big = V(2.0) / (V(kPi) * xs);
+    rjmu = sqrt(fabs(w_big / ((pc - f) * gam + qc)));
+    rjmu = rjl >= V(0.0) ? rjmu : -rjmu;
+    if (need_y) {
+      rymu = rjmu * gam;
+      const V rymup = rymu * (pc + qc / gam);
+      ry1 = xmu * xib * rymu - rymup;
+    }
   }
-  const V rymu_s = -ssum;
-  const V ry1_s = -ssum1 * (V(2.0) / xc);
-  const V rymup_s = xmu / xc * rymu_s - ry1_s;
-  const V w_small = V(2.0) / (V(kPi) * xc);
-  const V rjmu_s = w_small / (rymup_s - f * rymu_s);
-
-  // large x: the complex CF2
-  const V xb = maxc(xs, 2.0);
-  const V xib = V(1.0) / xb;
-  V a = V(0.25) - xmu2;
-  V pc = V(-0.5) * xib;
-  V qc = 1.0;
-  const V br = V(2.0) * xb;
-  V bi = 2.0;
-  const V fact_c = a * xib / (pc * pc + qc * qc);
-  V cr = br + qc * fact_c;
-  V ci = bi + pc * fact_c;
-  const V den0 = br * br + bi * bi;
-  V dr = br / den0;
-  V di = -bi / den0;
-  V dlr = cr * dr - ci * di;
-  V dli = cr * di + ci * dr;
-  V temp = pc * dlr - qc * dli;
-  qc = pc * dli + qc * dlr;
-  pc = temp;
-  done = false;
-  for (int i = 2; i < 100; ++i) {
-    const double fi = i;
-    const V a2 = a + V(2.0 * (fi - 1.0));
-    const V bi2 = bi + V(2.0);
-    V dr2 = a2 * dr + br;
-    const V di2 = a2 * di + bi2;
-    const bool small = (fabs(dr2) + fabs(di2)) < V(tiny);
-    dr2 = small ? V(tiny) : dr2;
-    const V fct = a2 / (cr * cr + ci * ci);
-    V cr2 = br + cr * fct;
-    const V ci2 = bi2 - ci * fct;
-    const bool smallc = (fabs(cr2) + fabs(ci2)) < V(tiny);
-    cr2 = smallc ? V(tiny) : cr2;
-    const V den = dr2 * dr2 + di2 * di2;
-    const V dr3 = dr2 / den;
-    const V di3 = -di2 / den;
-    dlr = cr2 * dr3 - ci2 * di3;
-    dli = cr2 * di3 + ci2 * dr3;
-    temp = pc * dlr - qc * dli;
-    const V qc2 = pc * dli + qc * dlr;
-    const V pc2 = temp;
-    const bool conv = (fabs(dlr - V(1.0)) + fabs(dli)) < V(1e-16);
-    a = done ? a : a2;
-    bi = done ? bi : bi2;
-    cr = done ? cr : cr2;
-    ci = done ? ci : ci2;
-    dr = done ? dr : dr3;
-    di = done ? di : di3;
-    pc = done ? pc : pc2;
-    qc = done ? qc : qc2;
-    done = done || conv;
-  }
-  const V gam = (pc - f) / qc;
-  const V w_big = V(2.0) / (V(kPi) * xb);
-  V rjmu_b = sqrt(fabs(w_big / ((pc - f) * gam + qc)));
-  rjmu_b = rjl >= V(0.0) ? rjmu_b : -rjmu_b;
-  const V rymu_b = rjmu_b * gam;
-  const V rymup_b = rymu_b * (pc + qc / gam);
-  const V ry1_b = xmu * xib * rymu_b - rymup_b;
-
-  const bool small_mask = xs < V(2.0);
-  const V rjmu = small_mask ? rjmu_s : rjmu_b;
-  V rymu = small_mask ? rymu_s : rymu_b;
-  V ry1 = small_mask ? ry1_s : ry1_b;
   const V rj = rjl1 * (rjmu / rjl);
-  for (int i = 0; i < 30; ++i) {
-    const bool step = nl > V((double)i);
-    const V rytemp = (xmu + V((double)i) + V(1.0)) * xi2 * ry1 - rymu;
-    const V rymu2 = step ? ry1 : rymu;
-    ry1 = step ? rytemp : ry1;
-    rymu = rymu2;
+  if (need_y) {
+    for (int i = 0; i < 30; ++i) {
+      if (!(nl > V((double)i))) break;
+      const V rytemp = (xmu + V((double)i) + V(1.0)) * xi2 * ry1 - rymu;
+      rymu = ry1;
+      ry1 = rytemp;
+    }
   }
-  const bool bad = x <= V(0.0);
-  return {bad ? nan_of<T>() : rj, bad ? nan_of<T>() : rymu};
+  return {rj, rymu};
 }
 
-// J_ν (J) or Y_ν for large z: Hankel's expansion (special.py's _jy_asymptotic)
+// J_ν (J) or Y_ν for large z: Hankel's expansion (special.py's
+// _jy_asymptotic), each sum left where its terms stop shrinking
 template <bool J, typename T>
 ISF_FN R<T> jy_asymptotic(R<T> nu, R<T> z) {
   typedef R<T> V;
@@ -642,18 +900,23 @@ ISF_FN R<T> jy_asymptotic(R<T> nu, R<T> z) {
   V term_q = q;
   bool stop_p = false, stop_q = false;
   for (int k = 1; k < 16; ++k) {
+    if (stop_p && stop_q) break;
     const double c1 = (double)((4 * k - 3) * (4 * k - 3)), c2 = (double)((4 * k - 1) * (4 * k - 1));
     const double c3 = (double)((4 * k + 1) * (4 * k + 1));
-    const V new_p = -term_p * (mu - V(c1)) * (mu - V(c2)) / V((double)((2 * k - 1) * (2 * k))) *
-                    zi * zi;
-    stop_p = stop_p || (fabs(new_p) >= fabs(term_p));
-    p = stop_p ? p : p + new_p;
-    term_p = new_p;
-    const V new_q = -term_q * (mu - V(c2)) * (mu - V(c3)) / V((double)((2 * k) * (2 * k + 1))) *
-                    zi * zi;
-    stop_q = stop_q || (fabs(new_q) >= fabs(term_q));
-    q = stop_q ? q : q + new_q;
-    term_q = new_q;
+    if (!stop_p) {
+      const V new_p = -term_p * (mu - V(c1)) * (mu - V(c2)) /
+                      V((double)((2 * k - 1) * (2 * k))) * zi * zi;
+      stop_p = fabs(new_p) >= fabs(term_p);
+      if (!stop_p) p = p + new_p;
+      term_p = new_p;
+    }
+    if (!stop_q) {
+      const V new_q = -term_q * (mu - V(c2)) * (mu - V(c3)) /
+                      V((double)((2 * k) * (2 * k + 1))) * zi * zi;
+      stop_q = fabs(new_q) >= fabs(term_q);
+      if (!stop_q) q = q + new_q;
+      term_q = new_q;
+    }
   }
   const V chi = z - (V(0.5) * nu + V(0.25)) * V(kPi);
   const V amp = sqrt(V(2.0) / (V(kPi) * z));
@@ -677,269 +940,117 @@ ISF_FN JY<T> sincospi(R<T> r) {
   return {sq * cu + cq * su, cq * cu - sq * su};
 }
 
-// (J_ν, Y_ν), |ν| <= 30.5, z > 0 (special.py's _bessjy_frac)
+// (J_ν, Y_ν), |ν| <= 30.5, z > 0 (special.py's _bessjy_frac): Steed's method
+// to z = 40, Hankel's expansion beyond (above order 8 at the reduced order,
+// recurred upward); J alone (want_j), Y alone or both, the other computed
+// only where a negative order's reflection needs it
 template <typename T>
-ISF_HEAVY JY<T> bessjy_frac(R<T> nu, R<T> z) {
+ISF_HEAVY JY<T> bessjy_frac(R<T> nu, R<T> z, bool want_j, bool want_y) {
   typedef R<T> V;
   const V anu = fabs(nu);
-  const JY<T> s = bessjy_steed(anu, minc(z, 40.0));
-  const V zb = maxc(z, 40.0);
-  V ja = jy_asymptotic<true>(anu, zb);
-  V ya = jy_asymptotic<false>(anu, zb);
-  const V nl = floor(anu + V(0.5));
-  const V mu = anu - nl;
-  V jk = jy_asymptotic<true>(mu, zb);
-  V jk1 = jy_asymptotic<true>(mu + V(1.0), zb);
-  V yk = jy_asymptotic<false>(mu, zb);
-  V yk1 = jy_asymptotic<false>(mu + V(1.0), zb);
-  const V xi2 = V(2.0) / zb;
-  for (int i = 0; i < 31; ++i) {
-    const bool step = nl > V((double)i);
-    const V fac = (mu + V((double)i) + V(1.0)) * xi2;
-    const V jn = fac * jk1 - jk;
-    const V yn = fac * yk1 - yk;
-    const V jk2 = step ? jk1 : jk;
-    jk1 = step ? jn : jk1;
-    jk = jk2;
-    const V yk2 = step ? yk1 : yk;
-    yk1 = step ? yn : yk1;
-    yk = yk2;
-  }
-  const bool hi_order = anu > V(8.0);
-  ja = hi_order ? jk : ja;
-  ya = hi_order ? yk : ya;
-  const bool big = z > V(40.0);
-  V j = big ? ja : s.j;
-  V y = big ? ya : s.y;
-  const JY<T> sc = sincospi(anu);
-  const V j_neg = j * sc.y - y * sc.j;
-  const V y_neg = j * sc.j + y * sc.y;
+  if (anu > V(30.5)) return {nan_of<T>(), nan_of<T>()};
   const bool neg = nu < V(0.0);
-  j = neg ? j_neg : j;
-  y = neg ? y_neg : y;
-  const bool bad = anu > V(30.5);
-  return {bad ? nan_of<T>() : j, bad ? nan_of<T>() : y};
-}
-
-template <typename T>
-ISF_FN R<T> bessel_y0y1_small0(R<T> z) {
-  typedef R<T> V;
-  const V q = z * z * V(0.25);
-  const V logz2 = log(z * V(0.5));
-  V term = 1.0, acc = 0.0, hk = 0.0;
-  for (int k = 1; k < 32; ++k) {
-    const double kf = k;
-    term = term * (-q) / V(kf * kf);
-    hk = hk + V(1.0 / kf);
-    acc = acc + (-term) * hk;
+  const bool need_j = want_j || neg, need_y = want_y || neg;
+  V j = 0.0, y = 0.0;
+  if (z > V(40.0)) {
+    if (anu > V(8.0)) {
+      const V nl = floor(anu + V(0.5));
+      const V mu = anu - nl;
+      V jk = 0.0, jk1 = 0.0, yk = 0.0, yk1 = 0.0;
+      if (need_j) {
+        jk = jy_asymptotic<true>(mu, z);
+        jk1 = jy_asymptotic<true>(mu + V(1.0), z);
+      }
+      if (need_y) {
+        yk = jy_asymptotic<false>(mu, z);
+        yk1 = jy_asymptotic<false>(mu + V(1.0), z);
+      }
+      const V xi2 = V(2.0) / z;
+      for (int i = 0; i < 31; ++i) {
+        if (!(nl > V((double)i))) break;
+        const V fac = (mu + V((double)i) + V(1.0)) * xi2;
+        if (need_j) {
+          const V jn = fac * jk1 - jk;
+          jk = jk1;
+          jk1 = jn;
+        }
+        if (need_y) {
+          const V yn = fac * yk1 - yk;
+          yk = yk1;
+          yk1 = yn;
+        }
+      }
+      j = jk;
+      y = yk;
+    } else {
+      if (need_j) j = jy_asymptotic<true>(anu, z);
+      if (need_y) y = jy_asymptotic<false>(anu, z);
+    }
+  } else {
+    const JY<T> s = bessjy_steed(anu, z, need_y);
+    j = s.j;
+    y = s.y;
   }
-  return V(2.0 / kPi) * ((logz2 + V(kEulerGamma)) * bessel_jn<0>(z) + acc);
-}
-
-template <typename T>
-ISF_FN R<T> bessel_y0y1_small1(R<T> z) {
-  typedef R<T> V;
-  const V q = z * z * V(0.25);
-  const V logz2 = log(z * V(0.5));
-  V term = 1.0, acc = 1.0, hk = 0.0, hk1 = 1.0;
-  for (int k = 1; k < 32; ++k) {
-    const double kf = k;
-    term = term * (-q) / V(kf * (kf + 1.0));
-    hk = hk + V(1.0 / kf);
-    hk1 = hk1 + V(1.0 / (kf + 1.0));
-    acc = acc + term * (hk + hk1);
+  if (neg) {
+    const JY<T> sc = sincospi(anu);
+    const V j_neg = j * sc.y - y * sc.j;
+    const V y_neg = j * sc.j + y * sc.y;
+    j = j_neg;
+    y = y_neg;
   }
-  return V(2.0 / kPi) * ((logz2 + V(kEulerGamma)) * bessel_jn<1>(z) - V(1.0) / z -
-                         (z * V(0.25)) * acc);
+  return {j, y};
 }
 
-ISF_TABLE kK0Mid[23] = {
-    1.2028286465790197, -0.030591787719553676, 0.0014210722375637287,
-    -0.00010388158100365775, 9.762067788423225e-06, -1.082086296879005e-06,
-    1.351201646484709e-07, -1.8482595638611766e-08, 2.7186252388337763e-09,
-    -4.2445766658763436e-10, 6.967483660813012e-11, -1.1937916743473208e-11,
-    2.122964169369167e-12, -3.900234424279417e-13, 7.379256178071285e-14,
-    -1.4358723953495275e-14, 2.906948152039217e-15, -5.661300575341757e-16,
-    1.4790247649295895e-16, -3.7292984407056944e-17, 4.079690562390755e-17,
-    -3.755188669435943e-17, 5.87983431477737e-17};
-ISF_TABLE kK0Big[19] = {
-    1.243990650868462, -0.009174852691025803, 0.0001444550931774185,
-    -4.013614175529894e-06, 1.5678318100587383e-07, -7.770110513915755e-09,
-    4.6111815781408603e-10, -3.158599198997939e-11, 2.4349281259007275e-12,
-    -2.0746853963234516e-13, 1.9171836557903002e-14, -2.0445114343506195e-15,
-    1.5179938710645071e-16, -6.182631040969e-17, -4.816035433020208e-17,
-    -1.0835900161805395e-17, -3.281931876688869e-17, -1.2518526181642369e-17,
-    -1.3017455987150712e-17};
-ISF_TABLE kK1Mid[23] = {
-    1.4189885893618182, 0.10612301366130722, -0.002702099638238477,
-    0.0001642748476195546, -1.4066859038775309e-05, 1.4728630269748668e-06,
-    -1.7689408145186164e-07, 2.3517081640480202e-08, -3.3843113374756892e-09,
-    5.192772802632103e-10, -8.403627294281494e-11, 1.422843705030357e-11,
-    -2.505033636540474e-12, 4.561081594257689e-13, -8.583800390419009e-14,
-    1.6395736411563473e-14, -3.560270024145593e-15, 6.186397753261234e-16,
-    -3.2426039306575127e-16, -4.652819950330459e-17, -1.6261072401069936e-16,
-    -2.6902548683153138e-17, -2.0969558484027402e-16};
-ISF_TABLE kK1Big[19] = {
-    1.2818965417186945, 0.028328878130496924, -0.0002475370673908294,
-    5.771972451393736e-06, -2.0689392218267664e-07, 9.7399832458936e-09,
-    -5.585338401432265e-10, 3.732975526333097e-11, -2.8252565097005837e-12,
-    2.3701095737069585e-13, -2.1914146235882745e-14, 1.9954495011791e-15,
-    -3.436372385782436e-16, -8.202562152366134e-17, -9.82720080779848e-17,
-    -6.961783446547556e-17, -4.983764228948445e-17, -3.7631602816937714e-17,
-    -3.798734762107494e-17};
-ISF_TABLE kP0Cheb[27] = {
-    0.9983508529003942, -0.001622326525375695, 2.5659898108143426e-05,
-    -1.074733530416572e-06, 7.695166556043232e-08, -7.791256341956166e-09,
-    1.0076739103231815e-09, -1.5658349022456687e-10, 2.8088380309445716e-11,
-    -5.658276572807053e-12, 1.2545846649486519e-12, -3.018157851826075e-13,
-    7.770335308276474e-14, -2.1400656843957792e-14, 6.0866911665685924e-15,
-    -1.9175618638796704e-15, 5.223191128158126e-16, -2.582061101890892e-16,
-    3.812008134199594e-18, -7.203990078083427e-17, -4.557691178921068e-17,
-    -7.223706440208404e-17, -2.4180592802364897e-17, -3.5987873804036357e-17,
-    -2.354118526106635e-17, -3.087215181110812e-18, 3.0030154289718896e-19};
-ISF_TABLE kQ0Cheb[27] = {
-    -0.9868477858880368, 0.012759549508489528, -0.0003688766783741065,
-    2.158470606690122e-05, -1.9316120103761817e-06, 2.304153571648965e-07,
-    -3.3875070735292195e-08, 5.843684649743781e-09, -1.1445219177974879e-09,
-    2.4865775839813145e-10, -5.891333657551081e-11, 1.5026430945397446e-11,
-    -4.084478611649733e-12, 1.1740431677796777e-12, -3.543196004136144e-13,
-    1.1190546422688331e-13, -3.6596652104615294e-14, 1.2563723156020945e-14,
-    -4.314441346685688e-15, 1.6441712130040167e-15, -5.2741677897999485e-16,
-    2.921798175429053e-16, -3.892383191730539e-17, 6.579633017216143e-17,
-    2.2880739233840472e-17, 2.3189038055029087e-18, 1.2657498054430783e-17};
-ISF_TABLE kP1Cheb[27] = {
-    1.0027803045717265, 0.0027451765837570277, -3.37240456836456e-05,
-    1.3039465877996387e-06, -8.977362126121733e-08, 8.879041215404142e-09,
-    -1.1304764437260006e-09, 1.7368451938885874e-10, -3.088836293566369e-11,
-    6.179620070343051e-12, -1.3628285303321794e-12, 3.260649624431963e-13,
-    -8.390493153679579e-14, 2.2715949868341296e-14, -6.649476182587768e-15,
-    1.905978001484501e-15, -6.998943698090866e-16, 1.1415812995042947e-16,
-    -1.394877549346043e-16, -5.089708752991405e-17, -6.315774200223593e-17,
-    -3.747835943704532e-17, -6.557383948286377e-17, -5.336819161384358e-17,
-    -1.4614448608232376e-17, -7.277419269263228e-17, -4.1262536705884326e-18};
-ISF_TABLE kQ1Cheb[27] = {
-    2.981372314582739, -0.018139154448572267, 0.0004604727250432597,
-    -2.5533947079856635e-05, 2.2187784778197517e-06, -2.5977194735365343e-07,
-    3.769713746371197e-08, -6.440505408154428e-09, 1.251985974947473e-09,
-    -2.7037085655414845e-10, 6.37399269324142e-11, -1.618963561913587e-11,
-    4.384894552402446e-12, -1.2564827497987848e-12, 3.7812825146302015e-13,
-    -1.1914928855413263e-13, 3.8782919129101206e-14, -1.3391579376625813e-14,
-    4.495570412283071e-15, -1.7262176941126247e-15, 5.114991046295202e-16,
-    -2.684317911813195e-16, 2.385651056346922e-17, -1.0554732655592933e-16,
-    2.0011870922808886e-17, -1.0545496332212484e-18, -1.5345237860883502e-17};
-
-static constexpr double kKMidLo = 1.0 / 8.0, kKMidHi = 1.0 / 1.5;
-static constexpr double kPqVHi = (8.0 / 4.5) * (8.0 / 4.5);
-
-template <int N, typename T>
-ISF_FN R<T> besselk01_cheb(R<T> z) {
-  typedef R<T> V;
-  const V u = V(1.0) / z;
-  const V t_mid = (V(2.0) * minc(maxc(u, kKMidLo), kKMidHi) - V(kKMidLo + kKMidHi)) /
-                  V(kKMidHi - kKMidLo);
-  const V t_big = V(16.0) * minc(maxc(u, 0.0), kKMidLo) - V(1.0);
-  const V mid = N == 0 ? cheb_eval(kK0Mid, t_mid) : cheb_eval(kK1Mid, t_mid);
-  const V big = N == 0 ? cheb_eval(kK0Big, t_big) : cheb_eval(kK1Big, t_big);
-  const V scaled = z > V(8.0) ? big : mid;
-  return scaled * exp(-z) / sqrt(z);
-}
-
-template <int N, typename T>
-ISF_FN R<T> bessely01_cheb(R<T> z) {
-  typedef R<T> V;
-  const V r = V(8.0) / z;
-  const V v = minc(maxc(r * r, 0.0), kPqVHi);
-  const V t = (V(2.0) * v - V(kPqVHi)) / V(kPqVHi);
-  const V p = N == 0 ? cheb_eval(kP0Cheb, t) : cheb_eval(kP1Cheb, t);
-  const V q = (N == 0 ? cheb_eval(kQ0Cheb, t) : cheb_eval(kQ1Cheb, t)) / (V(8.0) * z);
-  const V chi = z - V((0.5 * N + 0.25) * kPi);
-  const V amp = sqrt(V(2.0) / (V(kPi) * z));
-  return amp * (p * sin(chi) + q * cos(chi));
-}
-
-template <int N, typename T>
-ISF_FN R<T> y01(R<T> zs) {
-  const R<T> small = N == 0 ? bessel_y0y1_small0(minc(zs, 4.5)) : bessel_y0y1_small1(minc(zs, 4.5));
-  const R<T> big = bessely01_cheb<N>(maxc(zs, 4.5));
-  return zs < R<T>(4.5) ? small : big;
-}
-
+// Y_N, a static integer order, z > 0: Y_0, Y_1 and the upward recurrence
 template <int N, typename T>
 ISF_FN R<T> bessely_int(R<T> z) {
   typedef R<T> V;
   constexpr int n = N < 0 ? -N : N;
-  const V zs = z > V(0.0) ? z : V(1.0);
-  V out = y01<0>(zs);
-  if constexpr (n > 0) {
-    V prev = out, cur = y01<1>(zs);
-    for (int k = 1; k < n; ++k) {
-      const V next = (V(2.0 * k) / zs) * cur - prev;
-      prev = cur;
-      cur = next;
+  if (!(z > V(0.0))) return nan_of<T>();
+  V out;
+  if constexpr (n == 1) {
+    out = bessel_y1(z);
+  } else {
+    out = bessel_y0(z);
+    if constexpr (n > 1) {
+      V prev = out, cur = bessel_y1(z);
+      for (int k = 1; k < n; ++k) {
+        const V next = (V(2.0 * k) / z) * cur - prev;
+        prev = cur;
+        cur = next;
+      }
+      out = cur;
     }
-    out = cur;
   }
   if constexpr (N < 0 && (n % 2) == 1) out = -out;
-  return z > V(0.0) ? out : nan_of<T>();
+  return out;
 }
 
-template <typename T>
-ISF_FN R<T> besselk_int_small0(R<T> z) {
-  typedef R<T> V;
-  const V q = z * z * V(0.25);
-  const V logz2 = log(z * V(0.5));
-  V term = 1.0, acc = 0.0, hk = 0.0;
-  for (int k = 1; k < 40; ++k) {
-    const double kf = k;
-    term = term * q / V(kf * kf);
-    hk = hk + V(1.0 / kf);
-    acc = acc + term * hk;
-  }
-  return -(logz2 + V(kEulerGamma)) * i0(z) + acc;
-}
-
-template <typename T>
-ISF_FN R<T> besselk_int_small1(R<T> z) {
-  typedef R<T> V;
-  const V q = z * z * V(0.25);
-  const V logz2 = log(z * V(0.5));
-  V term = 1.0, acc = -2.0 * kEulerGamma + 1.0, hk = 0.0, hk1 = 1.0;
-  for (int k = 1; k < 40; ++k) {
-    const double kf = k;
-    term = term * q / V(kf * (kf + 1.0));
-    hk = hk + V(1.0 / kf);
-    hk1 = hk1 + V(1.0 / (kf + 1.0));
-    acc = acc + term * (V(-2.0 * kEulerGamma) + hk + hk1);
-  }
-  return V(1.0) / z + logz2 * i1(z) - (z * V(0.25)) * acc;
-}
-
-template <int N, typename T>
-ISF_FN R<T> k01(R<T> zs) {
-  const R<T> small = N == 0 ? besselk_int_small0(minc(zs, 1.5)) : besselk_int_small1(minc(zs, 1.5));
-  const R<T> big = besselk01_cheb<N>(maxc(zs, 1.5));
-  return zs < R<T>(1.5) ? small : big;
-}
-
+// K_N, a static integer order, z > 0: K_0, K_1 and the upward recurrence
 template <int N, typename T>
 ISF_FN R<T> besselk_int(R<T> z) {
   typedef R<T> V;
   constexpr int n = N < 0 ? -N : N;
-  const V zs = z > V(0.0) ? z : V(1.0);
-  V out = k01<0>(zs);
-  if constexpr (n > 0) {
-    V prev = out, cur = k01<1>(zs);
-    for (int k = 1; k < n; ++k) {
-      const V next = prev + (V(2.0 * k) / zs) * cur;
-      prev = cur;
-      cur = next;
+  if (!(z > V(0.0))) return nan_of<T>();
+  if constexpr (n == 1) {
+    return bessel_k1(z);
+  } else {
+    V out = bessel_k0(z);
+    if constexpr (n > 1) {
+      V prev = out, cur = bessel_k1(z);
+      for (int k = 1; k < n; ++k) {
+        const V next = prev + (V(2.0 * k) / z) * cur;
+        prev = cur;
+        cur = next;
+      }
+      out = cur;
     }
-    out = cur;
+    return out;
   }
-  return z > V(0.0) ? out : nan_of<T>();
 }
 
-// K_ν, x >= 2: Steed/Thompson-Barnett's CF2 (special.py's _besselk_frac_cf2)
+// K_ν, x >= 2: Steed/Thompson-Barnett's CF2 (special.py's _besselk_frac_cf2),
+// left where it converges, recurred upward nl steps
 template <typename T>
 ISF_FN R<T> besselk_frac_cf2(R<T> nu, R<T> x) {
   typedef R<T> V;
@@ -953,56 +1064,45 @@ ISF_FN R<T> besselk_frac_cf2(R<T> nu, R<T> x) {
   V q1 = 0.0, q2 = 1.0;
   V ss = V(1.0) + a1 * d0;
   const V eps = sizeof(T) == 4 ? V(1e-8) : V(1e-17);
-  bool done = false;
   for (int i = 2; i < 61; ++i) {
     const double fi = i;
-    const V a2 = a - V(2.0 * (fi - 1.0));
-    const V c2 = -a2 * c / V(fi);
-    const V qnew = (q1 - b * q2) / a2;
-    const V q3 = q + c2 * qnew;
-    const V b2 = b + V(2.0);
-    const V d2 = V(1.0) / (b2 + a2 * d);
-    const V delh2 = (b2 * d2 - V(1.0)) * delh;
-    const V h2 = h + delh2;
-    const V ss2 = ss + q3 * delh2;
-    const bool conv = (fabs(q3 * delh2) < eps * fabs(ss2)) && (fabs(delh2) < eps * fabs(h2));
-    a = done ? a : a2;
-    c = done ? c : c2;
-    const V q1n = done ? q1 : q2;
-    q2 = done ? q2 : qnew;
-    q1 = q1n;
-    q = done ? q : q3;
-    b = done ? b : b2;
-    d = done ? d : d2;
-    delh = done ? delh : delh2;
-    h = done ? h : h2;
-    ss = done ? ss : ss2;
-    done = done || conv;
+    a = a - V(2.0 * (fi - 1.0));
+    c = -a * c / V(fi);
+    const V qnew = (q1 - b * q2) / a;
+    q1 = q2;
+    q2 = qnew;
+    q = q + c * qnew;
+    b = b + V(2.0);
+    d = V(1.0) / (b + a * d);
+    delh = (b * d - V(1.0)) * delh;
+    h = h + delh;
+    ss = ss + q * delh;
+    if ((fabs(q * delh) < eps * fabs(ss)) && (fabs(delh) < eps * fabs(h))) break;
   }
   h = a1 * h;
   V rkmu = sqrt(V(kPi) / (V(2.0) * x)) * exp(-x) / ss;
   V rk1 = rkmu * (xmu + x + V(0.5) - h) * xi;
   for (int i = 0; i < 31; ++i) {
-    const bool step = nl > V((double)i);
+    if (!(nl > V((double)i))) break;
     const V ktemp = (xmu + V((double)i) + V(1.0)) * V(2.0) * xi * rk1 + rkmu;
-    const V rkmu2 = step ? rk1 : rkmu;
-    rk1 = step ? ktemp : rk1;
-    rkmu = rkmu2;
+    rkmu = rk1;
+    rk1 = ktemp;
   }
   return rkmu;
 }
 
+// K_ν: π(I_{-ν} - I_ν)/(2 sin νπ) below z = 2, the CF2 from z = 2
 template <typename T>
 ISF_HEAVY R<T> besselk_frac(R<T> nu, R<T> z) {
   typedef R<T> V;
   const V anu = fabs(nu);
-  const V zs_small = minc(z, 2.0);
-  const V ip = bessel_frac(-anu, zs_small, true);
-  const V im = bessel_frac(anu, zs_small, true);
-  const V small = V(kPi) * (ip - im) / (V(2.0) * sin(V(kPi) * anu));
-  const V big = besselk_frac_cf2(anu, maxc(z, 2.0));
-  const V out = z < V(2.0) ? small : big;
-  return anu > V(30.5) ? nan_of<T>() : out;
+  if (anu > V(30.5)) return nan_of<T>();
+  if (z < V(2.0)) {
+    const V ip = bessel_frac(-anu, z, true);
+    const V im = bessel_frac(anu, z, true);
+    return V(kPi) * (ip - im) / (V(2.0) * sin(V(kPi) * anu));
+  }
+  return besselk_frac_cf2(anu, z);
 }
 
 template <int N, typename T>
@@ -1019,49 +1119,47 @@ ISF_FN R<T> besseli_int(R<T> z) {
   }
 }
 
-// spherical j_n, integer n (special.py's sph_jn)
+// spherical j_n, integer n (special.py's sph_jn): upward where z > n,
+// Miller's downward recurrence normalised against j_0 and j_1 below
 template <int N, typename T>
 ISF_FN R<T> sph_jn_int(R<T> z) {
   typedef R<T> V;
   const V zs = z == V(0.0) ? V(1.0) : z;
-  const V j0 = sin(zs) / zs;
   if constexpr (N == 0) {
-    return z == V(0.0) ? V(1.0) : j0;
+    return z == V(0.0) ? V(1.0) : sin(zs) / zs;
+  } else if constexpr (N == 1) {
+    return z == V(0.0) ? V(0.0) : sin(zs) / (zs * zs) - cos(zs) / zs;
   } else {
-    const V j1 = sin(zs) / (zs * zs) - cos(zs) / zs;
-    if constexpr (N == 1) {
-      return z == V(0.0) ? V(0.0) : j1;
-    } else {
-      V up_prev = j0, up_cur = j1;
+    if (z == V(0.0)) return V(0.0);
+    if (zs > V((double)N)) {
+      V up_prev = sin(zs) / zs, up_cur = sin(zs) / (zs * zs) - cos(zs) / zs;
       for (int k = 1; k < N; ++k) {
         const V next = (V(2.0 * k + 1.0) / zs) * up_cur - up_prev;
         up_prev = up_cur;
         up_cur = next;
       }
-      const double bound = sizeof(T) == 4 ? 0x1p40 : 0x1p400;
-      const double factor = sizeof(T) == 4 ? 0x1p-40 : 0x1p-400;
-      V fp = 0.0, fc = 1e-30, f_n = 0.0, f0 = 0.0, f1 = 0.0;
-      const V zm = minc(zs, (double)N);
-      const V j0m = sin(zm) / zm;
-      const V j1m = sin(zm) / (zm * zm) - cos(zm) / zm;
-      for (int k = N + 28; k >= 1; --k) {
-        const V fn = (V(2.0 * k + 1.0) / zm) * fc - fp;
-        fp = fc;
-        fc = fn;
-        const V s = fabs(fc) > V(bound) ? V(factor) : V(1.0);
-        fc = fc * s;
-        fp = fp * s;
-        f_n = f_n * s;
-        f1 = f1 * s;
-        if (k - 1 == N) f_n = fc;
-        if (k - 1 == 1) f1 = fc;
-        if (k - 1 == 0) f0 = fc;
-      }
-      const V scale = (j0m * f0 + j1m * f1) / (f0 * f0 + f1 * f1);
-      const V down = f_n * scale;
-      const V out = zs > V((double)N) ? up_cur : down;
-      return z == V(0.0) ? V(0.0) : out;
+      return up_cur;
     }
+    const double bound = sizeof(T) == 4 ? 0x1p40 : 0x1p400;
+    const double factor = sizeof(T) == 4 ? 0x1p-40 : 0x1p-400;
+    V fp = 0.0, fc = 1e-30, f_n = 0.0, f0 = 0.0, f1 = 0.0;
+    const V j0m = sin(zs) / zs;
+    const V j1m = sin(zs) / (zs * zs) - cos(zs) / zs;
+    for (int k = N + 28; k >= 1; --k) {
+      const V fn = (V(2.0 * k + 1.0) / zs) * fc - fp;
+      fp = fc;
+      fc = fn;
+      const V s = fabs(fc) > V(bound) ? V(factor) : V(1.0);
+      fc = fc * s;
+      fp = fp * s;
+      f_n = f_n * s;
+      f1 = f1 * s;
+      if (k - 1 == N) f_n = fc;
+      if (k - 1 == 1) f1 = fc;
+      if (k - 1 == 0) f0 = fc;
+    }
+    const V scale = (j0m * f0 + j1m * f1) / (f0 * f0 + f1 * f1);
+    return f_n * scale;
   }
 }
 
@@ -1105,6 +1203,7 @@ ISF_FN R<T> sph_zs(R<T> z, bool j) {
 
 }  // namespace isf
 
+
 // --------------------------------------------------------------------------
 // Entries called by the generated model headers.  T is double or float, given
 // explicitly; N is a static integer order; other orders are values of T
@@ -1115,13 +1214,13 @@ template <typename T, int N>
 INFLX_FN T inflx_besselj_int(T z) { return isf::bessel_j_int<N>(isf::R<T>::of(z)).v; }
 template <typename T>
 INFLX_FN T inflx_besselj(T nu, T z) {
-  return isf::bessjy_frac(isf::R<T>::of(nu), isf::R<T>::of(z)).j.v;
+  return isf::bessjy_frac(isf::R<T>::of(nu), isf::R<T>::of(z), true, false).j.v;
 }
 template <typename T, int N>
 INFLX_FN T inflx_bessely_int(T z) { return isf::bessely_int<N>(isf::R<T>::of(z)).v; }
 template <typename T>
 INFLX_FN T inflx_bessely(T nu, T z) {
-  return isf::bessjy_frac(isf::R<T>::of(nu), isf::R<T>::of(z)).y.v;
+  return isf::bessjy_frac(isf::R<T>::of(nu), isf::R<T>::of(z), false, true).y.v;
 }
 template <typename T, int N>
 INFLX_FN T inflx_besseli_int(T z) { return isf::besseli_int<N>(isf::R<T>::of(z)).v; }
@@ -1143,12 +1242,12 @@ INFLX_FN T inflx_sph_yn_int(T z) { return isf::sph_yn_int<N>(isf::R<T>::of(z)).v
 template <typename T>
 INFLX_FN T inflx_sph_jn_frac(double nu, T z) {
   const isf::R<T> zv = isf::R<T>::of(z), zs = isf::sph_zs(zv, true);
-  return isf::sph_frac_finish<true>(nu, zv, zs, isf::bessjy_frac(isf::R<T>(nu + 0.5), zs).j).v;
+  return isf::sph_frac_finish<true>(nu, zv, zs, isf::bessjy_frac(isf::R<T>(nu + 0.5), zs, true, false).j).v;
 }
 template <typename T>
 INFLX_FN T inflx_sph_yn_frac(double nu, T z) {
   const isf::R<T> zv = isf::R<T>::of(z), zs = isf::sph_zs(zv, false);
-  return isf::sph_frac_finish<false>(nu, zv, zs, isf::bessjy_frac(isf::R<T>(nu + 0.5), zs).y).v;
+  return isf::sph_frac_finish<false>(nu, zv, zs, isf::bessjy_frac(isf::R<T>(nu + 0.5), zs, false, true).y).v;
 }
 // ... and ν + ½ = M, an integer (the integer-order J_M/Y_M)
 template <typename T, int M>
@@ -1185,3 +1284,4 @@ template <typename T>
 INFLX_FN T inflx_gamma(T x) { return isf::gamma(isf::R<T>::of(x)).v; }
 template <typename T, int N>
 INFLX_FN T inflx_polygamma(T x) { return isf::polygamma<N>(isf::R<T>::of(x)).v; }
+

@@ -14,9 +14,11 @@ This module is also the plain version of kernel B8
 operation inside the grid, point and solver kernels.  So it keeps to a few
 rules that make each line mean one thing on every device:
 
-* loops keep the JAX package's fixed trip counts, as Python loops over
-  tensors; each ``jnp.where`` is a ``torch.where`` (the kernel computes both
-  sides too);
+* loops keep the JAX package's trip counts as their most, as Python loops
+  over tensors; a loop that has settled is frozen by a mask (``done``,
+  ``step``, ``growing``, ``stop``), and the kernel leaves it there; each
+  ``jnp.where`` is a ``torch.where``, of which the kernel computes only the
+  side that the argument takes;
 * the only library functions are elementwise ones that CUDA's libm has
   under the same name (``exp``, ``log``, ``sqrt``, ``sin``, ``cos``,
   ``sinh``, ``cosh``, ``lgamma``, ``erf``, ``erfc``, ``floor``, ``rint``,
@@ -49,6 +51,17 @@ Differences from the JAX package, each on purpose:
   ``bessel_i0e``/``bessel_i1e`` evaluate; digamma and polygamma are the
   recurrence to x ≥ 16 and the asymptotic (Bernoulli) series, for x > −32
   (NaN with a one-time warning below).
+* J₀, J₁, Y₀, Y₁, K₀ and K₁ are Cephes' rational and Chebyshev forms
+  (the algorithms of ``torch.special``, evaluated as Cephes' ``polevl`` and
+  ``p1evl`` do: ``torch.special``'s ``bessel_j0``/``j1``/``y0``/``y1`` drop
+  the leading 1 of each ``p1evl`` denominator and part from scipy by up to
+  9e-7 above x = 5, in torch 2.13's CPU build), not JAX's Miller recurrence
+  and log series.  J_n for |n| ≥ 2 recurs upward from them where |z| > |n|
+  and keeps Miller's recurrence below (**C15**: JAX's 50-step Miller
+  recurrence parts from mpmath beyond z ≈ 25, by 0.16 at z = 55).
+* The power series of 0F1, 1F1 and 2F1 freeze their sum once no later term
+  can change it (:func:`_series_settled`); the values are those of the full
+  series, bit for bit.
 * ``series_budget`` is the TPU's and has no counterpart.
 
 Out-of-domain arguments return NaN and warn once per function and process
@@ -87,7 +100,6 @@ _FRAC_MAX = 30.5  # the largest |ν| of the fractional J/Y/K routes
 _SPH_FRAC_MAX = 29.5  # the largest fractional spherical |ν| (C2)
 _CF2_ITERS = 60
 _JN_ITERS = 50  # jax.scipy.special.bessel_jn's n_iter
-_EULER_GAMMA = 0.57721566490153286060651209008240243
 _PI = math.pi
 
 
@@ -171,6 +183,47 @@ def _is_static_int(nu) -> bool:
         return float(nu) == int(nu)
     except (TypeError, ValueError, OverflowError):
         return False
+
+
+def _polevl(x, coeffs):
+    """Cephes' ``polevl``: Σ c_k x^(N−k), Horner's rule from c_0."""
+    ans = torch.full_like(x, float(coeffs[0]))
+    for c in coeffs[1:]:
+        ans = ans * x + float(c)
+    return ans
+
+
+def _p1evl(x, coeffs):
+    """Cephes' ``p1evl``: ``polevl`` with an implied leading coefficient 1."""
+    ans = x + float(coeffs[0])
+    for c in coeffs[1:]:
+        ans = ans * x + float(c)
+    return ans
+
+
+def _settled(mask, n: int) -> bool:
+    """True when every element of a loop's frozen ``mask`` is set, checked
+    every eighth step: the plain version then leaves the loop, whose later
+    steps would change nothing (the kernel leaves it element by element)."""
+    return n % 8 == 7 and bool(mask.all())
+
+
+#: the bound on a power series' later term ratios at which it may stop: the
+#: computed terms then shrink, whatever their five roundings a step
+_RATIO = 0.99
+
+
+def _series_settled(done, ok, acc, acc2, term):
+    """The exit of a power series Σ t_n, after the step that added ``term``
+    to ``acc`` (giving ``acc2``): ``done`` once ``ok`` (every later ratio
+    |t_{m+1}/t_m| is below :data:`_RATIO`, so no later term is larger than
+    this one) and this term rounds away from ``acc`` on either side of it
+    (``acc2 == acc`` and ``acc − term == acc``), ``acc`` nonzero.  Then
+    every later term rounds away too (rounding is monotone, and a term no
+    larger than this one lies between acc − |term| and acc + |term|), so
+    the sum is the full series' bit for bit.  Kernel B8
+    (``csrc/special.cuh``) leaves the loop there."""
+    return done | (ok & (acc2 == acc) & (acc - term == acc) & (acc != 0.0))
 
 
 def _chbevl(x, coeffs):
@@ -270,8 +323,10 @@ def polygamma(n: int, x):
     fact = float(math.factorial(n))
     xs = x
     acc = torch.zeros_like(x)
-    for _ in range(_PSI_SHIFT):
+    for i in range(_PSI_SHIFT):
         step = xs < _PSI_X0
+        if _settled(~step, i):
+            break
         t = torch.ones_like(x) / _ipow(xs, n + 1)
         acc = torch.where(step, acc + t, acc)
         xs = torch.where(step, xs + 1.0, xs)
@@ -313,24 +368,50 @@ def _ipow(b, n: int):
 
 
 def hyp0f1(b, z):
-    """₀F₁(; b; z): the power series Σ zⁿ/((b)ₙ n!), 96 terms."""
+    """₀F₁(; b; z): the power series Σ zⁿ/((b)ₙ n!), at most 96 terms, frozen
+    once settled (:func:`_series_settled`): every later ratio
+    |z|/((b+m)(m+1)) is below 0.99 once b+n+1 > 0 and
+    |z| < 0.99(b+n+1)(n+2)."""
     b, z = _tensors(b, z)
     term = torch.ones_like(z)
     acc = torch.ones_like(z)
+    done = torch.zeros_like(z, dtype=torch.bool)
+    ok = torch.zeros_like(z, dtype=torch.bool)
+    az = torch.abs(z)
     for n in range(_SERIES_ITERS):
         nf = float(n)
         term = term * z / ((b + nf) * _k(z, nf + 1.0))
-        acc = acc + term
+        acc2 = acc + term
+        acc_b = b + (nf + 1.0)
+        ok = ok | ((acc_b > 0.0) & (az < acc_b * (_RATIO * (nf + 2.0))))
+        done_next = _series_settled(done, ok, acc, acc2, term)
+        acc = torch.where(done, acc, acc2)
+        done = done_next
+        if _settled(done, n):
+            break
     return acc
 
 
 def _hyp1f1_series(a, b, z, iters=420):
+    """Σ (a)ₙ zⁿ/((b)ₙ n!) for z ≥ 0, at most ``iters`` terms, frozen once
+    settled: every later ratio (a+m)z/((b+m)(m+1)) is below 0.99 once a+n+1
+    and b+n+1 are positive and z·max(a+n+1, b+n+1) < 0.99(b+n+1)(n+2)."""
     term = torch.ones_like(z)
     acc = torch.ones_like(z)
+    done = torch.zeros_like(z, dtype=torch.bool)
+    ok = torch.zeros_like(z, dtype=torch.bool)
     for n in range(iters):
         nf = float(n)
         term = term * (a + nf) * z / ((b + nf) * _k(z, nf + 1.0))
-        acc = acc + term
+        acc2 = acc + term
+        big_a, big_b = a + (nf + 1.0), b + (nf + 1.0)
+        top = torch.where(big_a > big_b, big_a, big_b)
+        ok = ok | ((big_a > 0.0) & (big_b > 0.0) & (z * top < big_b * (_RATIO * (nf + 2.0))))
+        done_next = _series_settled(done, ok, acc, acc2, term)
+        acc = torch.where(done, acc, acc2)
+        done = done_next
+        if _settled(done, n):
+            break
     return acc
 
 
@@ -351,15 +432,32 @@ def hyp1f1(a, b, z):
 
 
 def hyp2f1(a, b, c, z):
-    """₂F₁(a, b; c; z) for |z| < 1: the power series, 700 terms; |z| ≥ 1 is
-    NaN (map the argument in, as GSL's callers must)."""
+    """₂F₁(a, b; c; z) for |z| < 1: the power series, at most 700 terms,
+    frozen once settled (every later ratio is below 0.99 once a+n+1, b+n+1 and
+    c+n+1 are positive and |z|·max(a+n+1, c+n+1)·max(b+n+1, n+2) <
+    0.99(c+n+1)(n+2)); |z| ≥ 1 is NaN (map the argument in, as GSL's callers
+    must)."""
     a, b, c, z = _tensors(a, b, c, z)
     term = torch.ones_like(z)
     acc = torch.ones_like(z)
+    done = torch.zeros_like(z, dtype=torch.bool)
+    ok = torch.zeros_like(z, dtype=torch.bool)
+    az = torch.abs(z)
+    may = az < _RATIO  # else the ratios tend to |z| ≥ 0.99: no exit to look for
     for n in range(700):
         nf = float(n)
         term = term * (a + nf) * (b + nf) * z / ((c + nf) * _k(z, nf + 1.0))
-        acc = acc + term
+        acc2 = acc + term
+        big_a, big_b, big_c = a + (nf + 1.0), b + (nf + 1.0), c + (nf + 1.0)
+        top_ac = torch.where(big_a > big_c, big_a, big_c)
+        top_b = torch.where(big_b > nf + 2.0, big_b, _k(z, nf + 2.0))
+        ok = ok | (may & (big_a > 0.0) & (big_b > 0.0) & (big_c > 0.0)
+                   & (az * top_ac * top_b < big_c * (_RATIO * (nf + 2.0))))
+        done_next = _series_settled(done, ok, acc, acc2, term)
+        acc = torch.where(done, acc, acc2)
+        done = done_next
+        if _settled(done, n):
+            break
     bad = torch.abs(z) >= 1.0
     _warn_once_out_of_domain(
         "hyp2f1", bad,
@@ -383,6 +481,8 @@ def hyp2f0(a, b, z):
         growing = growing | (torch.abs(new_term) > torch.abs(term))
         acc = torch.where(growing, acc, acc + new_term)
         term = new_term
+        if _settled(growing, n):
+            break
     return acc
 
 
@@ -531,12 +631,177 @@ def i1(x):
 # --------------------------------------------------------------------------- #
 
 
+# Cephes' j0.c, j1.c, k0.c and k1.c (the coefficients of ATen's Math.h)
+_J0_RP = (-4.79443220978201773821E9, 1.95617491946556577543E12, -2.49248344360967716204E14,
+          9.70862251047306323952E15)
+_J0_RQ = (4.99563147152651017219E2, 1.73785401676374683123E5, 4.84409658339962045305E7,
+          1.11855537045356834862E10, 2.11277520115489217587E12, 3.10518229857422583814E14,
+          3.18121955943204943306E16, 1.71086294081043136091E18)
+_J0_DR1, _J0_DR2 = 5.78318596294678452118E0, 3.04712623436620863991E1
+_J1_RP = (-8.99971225705559398224E8, 4.52228297998194034323E11, -7.27494245221818276015E13,
+          3.68295732863852883286E15)
+_J1_RQ = (6.20836478118054335476E2, 2.56987256757748830383E5, 8.35146791431949253037E7,
+          2.21511595479792499675E10, 4.74914122079991414898E12, 7.84369607876235854894E14,
+          8.95222336184627338078E16, 5.32278620332680085395E18)
+_J1_Z1, _J1_Z2 = 1.46819706421238932572E1, 4.92184563216946036703E1
+_Y0_YP = (1.55924367855235737965E4, -1.46639295903971606143E7, 5.43526477051876500413E9,
+          -9.82136065717911466409E11, 8.75906394395366999549E13, -3.46628303384729719441E15,
+          4.42733268572569800351E16, -1.84950800436986690637E16)
+_Y0_YQ = (1.04128353664259848412E3, 6.26107330137134956842E5, 2.68919633393814121987E8,
+          8.64002487103935000337E10, 2.02979612750105546709E13, 3.17157752842975028269E15,
+          2.50596256172653059228E17)
+_Y1_YP = (1.26320474790178026440E9, -6.47355876379160291031E11, 1.14509511541823727583E14,
+          -8.12770255501325109621E15, 2.02439475713594898196E17, -7.78877196265950026825E17)
+_Y1_YQ = (5.94301592346128195359E2, 2.35564092943068577943E5, 7.34811944459721705660E7,
+          1.87601316108706159478E10, 3.88231277496238566008E12, 6.20557727146953693363E14,
+          6.87141087355300489866E16, 3.97270608116560655612E18)
+#: the modulus and phase forms above 5 (PP, PQ, QP and p1evl's QQ), order 0 and 1
+_JY_PP = ((7.96936729297347051624E-4, 8.28352392107440799803E-2, 1.23953371646414299388E0,
+           5.44725003058768775090E0, 8.74716500199817011941E0, 5.30324038235394892183E0,
+           9.99999999999999997821E-1),
+          (7.62125616208173112003E-4, 7.31397056940917570436E-2, 1.12719608129684925192E0,
+           5.11207951146807644818E0, 8.42404590141772420927E0, 5.21451598682361504063E0,
+           1.00000000000000000254E0))
+_JY_PQ = ((9.24408810558863637013E-4, 8.56288474354474431428E-2, 1.25352743901058953537E0,
+           5.47097740330417105182E0, 8.76190883237069594232E0, 5.30605288235394617618E0,
+           1.00000000000000000218E0),
+          (5.71323128072548699714E-4, 6.88455908754495404082E-2, 1.10514232634061696926E0,
+           5.07386386128601488557E0, 8.39985554327604159757E0, 5.20982848682361821619E0,
+           9.99999999999999997461E-1))
+_JY_QP = ((-1.13663838898469149931E-2, -1.28252718670509318512E0, -1.95539544257735972385E1,
+           -9.32060152123768231369E1, -1.77681167980488050595E2, -1.47077505154951170175E2,
+           -5.14105326766599330220E1, -6.05014350600728481186E0),
+          (5.10862594750176621635E-2, 4.98213872951233449420E0, 7.58238284132545283818E1,
+           3.66779609360150777800E2, 7.10856304998926107277E2, 5.97489612400613639965E2,
+           2.11688757100572135698E2, 2.52070205858023719784E1))
+_JY_QQ = ((6.43178256118178023184E1, 8.56430025976980587198E2, 3.88240183605401609683E3,
+           7.24046774195652478189E3, 5.93072701187316984827E3, 2.06209331660327847417E3,
+           2.42005740240291393179E2),
+          (7.42373277035675149943E1, 1.05644886038262816351E3, 4.98641058337653607651E3,
+           9.56231892404756170795E3, 7.99704160447350683650E3, 2.82619278517639096600E3,
+           3.36093607810698293419E2))
+_JY_PHASE = (7.85398163397448309616E-1, 2.35619449019234492885E0)  # π/4, 3π/4
+_SQ2OPI = 7.9788456080286535587989E-1  # √(2/π)
+_TWOOPI = 6.36619772367581343075535E-1  # 2/π
+_K0_A = (1.37446543561352307156E-16, 4.25981614279661018399E-14, 1.03496952576338420167E-11,
+         1.90451637722020886025E-9, 2.53479107902614945675E-7, 2.28621210311945178607E-5,
+         1.26461541144692592338E-3, 3.59799365153615016266E-2, 3.44289899924628486886E-1,
+         -5.35327393233902768720E-1)
+_K0_B = (5.30043377268626276149E-18, -1.64758043015242134646E-17, 5.21039150503902756861E-17,
+         -1.67823109680541210385E-16, 5.51205597852431940784E-16, -1.84859337734377901440E-15,
+         6.34007647740507060557E-15, -2.22751332699166985548E-14, 8.03289077536357521100E-14,
+         -2.98009692317273043925E-13, 1.14034058820847496303E-12, -4.51459788337394416547E-12,
+         1.85594911495471785253E-11, -7.95748924447710747776E-11, 3.57739728140030116597E-10,
+         -1.69753450938905987466E-9, 8.57403401741422608519E-9, -4.66048989768794782956E-8,
+         2.76681363944501510342E-7, -1.83175552271911948767E-6, 1.39498137188764993662E-5,
+         -1.28495495816278026384E-4, 1.56988388573005337491E-3, -3.14481013119645005427E-2,
+         2.44030308206595545468E0)
+_K1_A = (-7.02386347938628759343E-18, -2.42744985051936593393E-15, -6.66690169419932900609E-13,
+         -1.41148839263352776110E-10, -2.21338763073472585583E-8, -2.43340614156596823496E-6,
+         -1.73028895751305206302E-4, -6.97572385963986435018E-3, -1.22611180822657148235E-1,
+         -3.53155960776544875667E-1, 1.52530022733894777053E0)
+_K1_B = (-5.75674448366501715755E-18, 1.79405087314755922667E-17, -5.68946255844285935196E-17,
+         1.83809354436663880070E-16, -6.05704724837331885336E-16, 2.03870316562433424052E-15,
+         -7.01983709041831346144E-15, 2.47715442448130437068E-14, -8.97670518232499435011E-14,
+         3.34841966607842919884E-13, -1.28917396095102890680E-12, 5.13963967348173025100E-12,
+         -2.12996783842756842877E-11, 9.21831518760500529508E-11, -4.19035475934189648750E-10,
+         2.01504975519703286596E-9, -1.03457624656780970260E-8, 5.74108412545004946722E-8,
+         -3.50196060308781257119E-7, 2.40648494783721712015E-6, -1.93619797416608296024E-5,
+         1.95215518471351631108E-4, -2.85781685962277938680E-3, 1.03923736576817238437E-1,
+         2.72062619048444266945E0)
+
+
+def _j0_small(x):
+    """J₀(x) for |x| ≤ 5: (x² − j₀,₁²)(x² − j₀,₂²) P(x²)/Q(x²)."""
+    z = x * x
+    return (z - _J0_DR1) * (z - _J0_DR2) * _polevl(z, _J0_RP) / _p1evl(z, _J0_RQ)
+
+
+def _j1_small(x):
+    """J₁(x) for |x| ≤ 5, odd in x: x (x² − j₁,₁²)(x² − j₁,₂²) P(x²)/Q(x²)."""
+    z = x * x
+    return _polevl(z, _J1_RP) / _p1evl(z, _J1_RQ) * x * (z - _J1_Z1) * (z - _J1_Z2)
+
+
+def _jy01_big(n: int, x, kind: str):
+    """J_n (``kind="j"``) or Y_n, n = 0, 1, for x > 5: √(2/(πx)) (P cos ξ −
+    (5/x) Q sin ξ), ξ = x − (2n+1)π/4 (Y: sin and cos exchanged, +)."""
+    w = _k(x, 5.0) / x
+    z = w * w
+    p = _polevl(z, _JY_PP[n]) / _polevl(z, _JY_PQ[n])
+    q = _polevl(z, _JY_QP[n]) / _p1evl(z, _JY_QQ[n])
+    xn = x - _JY_PHASE[n]
+    if kind == "j":
+        p = p * torch.cos(xn) - w * q * torch.sin(xn)
+    else:
+        p = p * torch.sin(xn) + w * q * torch.cos(xn)
+    return p * _SQ2OPI / torch.sqrt(x)
+
+
+def _j0(x):
+    """J₀(x), every real x: the rational form to |x| = 5, the modulus and
+    phase form beyond (one route per argument in the kernel)."""
+    ax = torch.abs(x)
+    return torch.where(ax <= 5.0, _j0_small(ax), _jy01_big(0, ax, "j"))
+
+
+def _j1(x):
+    """J₁(x), every real x, odd."""
+    ax = torch.abs(x)
+    big = _jy01_big(1, ax, "j")
+    return torch.where(ax <= 5.0, _j1_small(x), torch.where(x < 0.0, -big, big))
+
+
+def _y0(x):
+    """Y₀(x) for x > 0: P(x²)/Q(x²) + (2/π) ln(x) J₀(x) to x = 5."""
+    z = x * x
+    small = _polevl(z, _Y0_YP) / _p1evl(z, _Y0_YQ) + _TWOOPI * torch.log(x) * _j0_small(x)
+    return torch.where(x <= 5.0, small, _jy01_big(0, x, "y"))
+
+
+def _y1(x):
+    """Y₁(x) for x > 0: x P(x²)/Q(x²) + (2/π)(J₁(x) ln x − 1/x) to x = 5."""
+    z = x * x
+    small = (x * (_polevl(z, _Y1_YP) / _p1evl(z, _Y1_YQ))
+             + _TWOOPI * (_j1_small(x) * torch.log(x) - 1.0 / x))
+    return torch.where(x <= 5.0, small, _jy01_big(1, x, "y"))
+
+
+def _k0(x):
+    """K₀(x) for x > 0: Cephes' Chebyshev series in x² − 2 minus
+    ln(x/2) I₀(x) to x = 2, e^(−x)/√x times one in 8/x − 2 beyond."""
+    small = _chbevl(x * x - 2.0, _K0_A) - torch.log(0.5 * x) * i0(x)
+    big = torch.exp(-x) * _chbevl(_k(x, 8.0) / x - 2.0, _K0_B) / torch.sqrt(x)
+    return torch.where(x <= 2.0, small, big)
+
+
+def _k1(x):
+    """K₁(x) for x > 0: ln(x/2) I₁(x) + (series in x² − 2)/x to x = 2."""
+    small = torch.log(0.5 * x) * i1(x) + _chbevl(x * x - 2.0, _K1_A) / x
+    big = torch.exp(-x) * _chbevl(_k(x, 8.0) / x - 2.0, _K1_B) / torch.sqrt(x)
+    return torch.where(x <= 2.0, small, big)
+
+
 def _bessel_j_int(n: int, z):
+    """J_n(z) for an integer n: J₀ and J₁ by their rational forms; |n| ≥ 2
+    by the upward recurrence J_{k+1} = (2k/z) J_k − J_{k−1} from them where
+    |z| > |n| (stable: k < |z| at every step) and by :func:`bessel_jn`'s
+    Miller recurrence where |z| ≤ |n| (upward, the error would grow as
+    Y_k/J_k there)."""
+    (z,) = _tensors(z)
     sign = 1.0
     if n < 0:  # J_{-n} = (-1)^n J_n
         sign = (-1.0) ** (-n)
         n = -n
-    out = bessel_jn(n, z)
+    if n == 0:
+        out = _j0(z)
+    elif n == 1:
+        out = _j1(z)
+    else:
+        prev, cur = _j0(z), _j1(z)
+        for k in range(1, n):
+            prev, cur = cur, (_k(z, 2.0 * k) / z) * cur - prev
+        out = torch.where(torch.abs(z) > float(n), cur, bessel_jn(n, z))
     return out if sign == 1.0 else -out
 
 
@@ -594,7 +859,7 @@ def _bessjy_steed(nu, x):
     b, c, d, h = xi2 * nu, h0, torch.zeros_like(xs), h0
     isign = torch.ones_like(xs)
     done = torch.zeros_like(xs, dtype=torch.bool)
-    for _ in range(1, _STEED_ITERS):
+    for it in range(1, _STEED_ITERS):
         b2 = b + xi2
         d2 = b2 - d
         d2 = torch.where(torch.abs(d2) < tiny, torch.full_like(d2, tiny), d2)
@@ -603,13 +868,15 @@ def _bessjy_steed(nu, x):
         d2 = 1.0 / d2
         dl = c2 * d2
         h2 = h * dl
-        isign = torch.where((d2 < 0.0) & ~done, -isign, isign)
+        isign = torch.where(~done & (d2 < 0.0), -isign, isign)
         conv = torch.abs(dl - 1.0) < 1e-16
         b = torch.where(done, b, b2)
         c = torch.where(done, c, c2)
         d = torch.where(done, d, d2)
         h = torch.where(done, h, h2)
         done = done | conv
+        if _settled(done, it):
+            break
 
     # downward recurrence, nl masked steps
     rjl = isign * tiny
@@ -618,6 +885,8 @@ def _bessjy_steed(nu, x):
     fact = nu * xi
     for i in range(_STEED_MAX_NL):
         step = nl > float(i)
+        if not bool(step.any()):  # every element has left the recurrence
+            break
         rjtemp = fact * rjl + rjpl
         fact2 = fact - xi
         rjpl2 = fact2 * rjtemp - rjl
@@ -671,6 +940,8 @@ def _bessjy_steed(nu, x):
         ssum = torch.where(done, ssum, ssum2)
         ssum1 = torch.where(done, ssum1, ssum12)
         done = done | conv
+        if _settled(done, i):
+            break
     rymu_s = -ssum
     ry1_s = -ssum1 * (_k(xc, 2.0) / xc)
     rymup_s = xmu / xc * rymu_s - ry1_s
@@ -728,6 +999,8 @@ def _bessjy_steed(nu, x):
         pc = torch.where(done, pc, pc2)
         qc = torch.where(done, qc, qc2)
         done = done | conv
+        if _settled(done, i):
+            break
     gam = (pc - f) / qc
     w_big = _k(xb, 2.0) / (_PI * xb)
     rjmu_b = torch.sqrt(torch.abs(w_big / ((pc - f) * gam + qc)))
@@ -743,6 +1016,8 @@ def _bessjy_steed(nu, x):
     rj = rjl1 * (rjmu / rjl)
     for i in range(_STEED_MAX_NL):
         step = nl > float(i)
+        if not bool(step.any()):  # every element has left the recurrence
+            break
         rytemp = (xmu + float(i) + 1.0) * xi2 * ry1 - rymu
         rymu, ry1 = torch.where(step, ry1, rymu), torch.where(step, rytemp, ry1)
     bad = x <= 0.0
@@ -776,6 +1051,8 @@ def _jy_asymptotic(nu, z, kind):
         stop_q = stop_q | (torch.abs(new_q) >= torch.abs(term_q))
         q = torch.where(stop_q, q, q + new_q)
         term_q = new_q
+        if _settled(stop_p & stop_q, k):
+            break
     chi = z - (0.5 * nu + 0.25) * _PI
     amp = torch.sqrt(_k(z, 2.0) / (_PI * z))
     if kind == "j":
@@ -816,6 +1093,8 @@ def _bessjy_frac(nu, z):
     jk, jk1, yk, yk1 = jmu, jmu1, ymu, ymu1
     for i in range(_STEED_MAX_NL + 1):
         step = nl > float(i)
+        if not bool(step.any()):  # every element has left the recurrence
+            break
         fac = (mu + float(i) + 1.0) * xi2
         jn = fac * jk1 - jk
         yn = fac * yk1 - yk
@@ -867,151 +1146,9 @@ def besseli(nu, z):
     return _bessel_frac(nu, z, modified=True)
 
 
-def _bessel_y0y1_small(n: int, z):
-    """Y₀/Y₁ power series for small z (A&S 9.1.13/9.1.16)."""
-    q = z * z * 0.25
-    logz2 = torch.log(z * 0.5)
-    term = torch.ones_like(z)
-    if n == 0:
-        acc = torch.zeros_like(z)
-        hk = torch.zeros_like(z)
-        for k in range(1, 32):
-            kf = float(k)
-            term = term * (-q) / _k(z, kf * kf)
-            hk = hk + 1.0 / kf
-            acc = acc + (-term) * hk
-        return (2.0 / _PI) * ((logz2 + _EULER_GAMMA) * bessel_jn(0, z) + acc)
-    acc = torch.ones_like(z)
-    hk = torch.zeros_like(z)
-    hk1 = torch.ones_like(z)
-    for k in range(1, 32):
-        kf = float(k)
-        term = term * (-q) / _k(z, kf * (kf + 1.0))
-        hk = hk + 1.0 / kf
-        hk1 = hk1 + 1.0 / (kf + 1.0)
-        acc = acc + term * (hk + hk1)
-    return (2.0 / _PI) * ((logz2 + _EULER_GAMMA) * bessel_jn(1, z) - 1.0 / z
-                          - (z * 0.25) * acc)
-
-
-_K0_MID = np.array([
-    1.2028286465790197, -0.030591787719553676, 0.0014210722375637287,
-    -0.00010388158100365775, 9.762067788423225e-06, -1.082086296879005e-06,
-    1.351201646484709e-07, -1.8482595638611766e-08, 2.7186252388337763e-09,
-    -4.2445766658763436e-10, 6.967483660813012e-11, -1.1937916743473208e-11,
-    2.122964169369167e-12, -3.900234424279417e-13, 7.379256178071285e-14,
-    -1.4358723953495275e-14, 2.906948152039217e-15, -5.661300575341757e-16,
-    1.4790247649295895e-16, -3.7292984407056944e-17, 4.079690562390755e-17,
-    -3.755188669435943e-17, 5.87983431477737e-17
-])
-_K0_BIG = np.array([
-    1.243990650868462, -0.009174852691025803, 0.0001444550931774185,
-    -4.013614175529894e-06, 1.5678318100587383e-07, -7.770110513915755e-09,
-    4.6111815781408603e-10, -3.158599198997939e-11, 2.4349281259007275e-12,
-    -2.0746853963234516e-13, 1.9171836557903002e-14, -2.0445114343506195e-15,
-    1.5179938710645071e-16, -6.182631040969e-17, -4.816035433020208e-17,
-    -1.0835900161805395e-17, -3.281931876688869e-17, -1.2518526181642369e-17,
-    -1.3017455987150712e-17
-])
-_K1_MID = np.array([
-    1.4189885893618182, 0.10612301366130722, -0.002702099638238477,
-    0.0001642748476195546, -1.4066859038775309e-05, 1.4728630269748668e-06,
-    -1.7689408145186164e-07, 2.3517081640480202e-08, -3.3843113374756892e-09,
-    5.192772802632103e-10, -8.403627294281494e-11, 1.422843705030357e-11,
-    -2.505033636540474e-12, 4.561081594257689e-13, -8.583800390419009e-14,
-    1.6395736411563473e-14, -3.560270024145593e-15, 6.186397753261234e-16,
-    -3.2426039306575127e-16, -4.652819950330459e-17, -1.6261072401069936e-16,
-    -2.6902548683153138e-17, -2.0969558484027402e-16
-])
-_K1_BIG = np.array([
-    1.2818965417186945, 0.028328878130496924, -0.0002475370673908294,
-    5.771972451393736e-06, -2.0689392218267664e-07, 9.7399832458936e-09,
-    -5.585338401432265e-10, 3.732975526333097e-11, -2.8252565097005837e-12,
-    2.3701095737069585e-13, -2.1914146235882745e-14, 1.9954495011791e-15,
-    -3.436372385782436e-16, -8.202562152366134e-17, -9.82720080779848e-17,
-    -6.961783446547556e-17, -4.983764228948445e-17, -3.7631602816937714e-17,
-    -3.798734762107494e-17
-])
-_P0_CHEB = np.array([
-    0.9983508529003942, -0.001622326525375695, 2.5659898108143426e-05,
-    -1.074733530416572e-06, 7.695166556043232e-08, -7.791256341956166e-09,
-    1.0076739103231815e-09, -1.5658349022456687e-10, 2.8088380309445716e-11,
-    -5.658276572807053e-12, 1.2545846649486519e-12, -3.018157851826075e-13,
-    7.770335308276474e-14, -2.1400656843957792e-14, 6.0866911665685924e-15,
-    -1.9175618638796704e-15, 5.223191128158126e-16, -2.582061101890892e-16,
-    3.812008134199594e-18, -7.203990078083427e-17, -4.557691178921068e-17,
-    -7.223706440208404e-17, -2.4180592802364897e-17, -3.5987873804036357e-17,
-    -2.354118526106635e-17, -3.087215181110812e-18, 3.0030154289718896e-19
-])
-_Q0_CHEB = np.array([
-    -0.9868477858880368, 0.012759549508489528, -0.0003688766783741065,
-    2.158470606690122e-05, -1.9316120103761817e-06, 2.304153571648965e-07,
-    -3.3875070735292195e-08, 5.843684649743781e-09, -1.1445219177974879e-09,
-    2.4865775839813145e-10, -5.891333657551081e-11, 1.5026430945397446e-11,
-    -4.084478611649733e-12, 1.1740431677796777e-12, -3.543196004136144e-13,
-    1.1190546422688331e-13, -3.6596652104615294e-14, 1.2563723156020945e-14,
-    -4.314441346685688e-15, 1.6441712130040167e-15, -5.2741677897999485e-16,
-    2.921798175429053e-16, -3.892383191730539e-17, 6.579633017216143e-17,
-    2.2880739233840472e-17, 2.3189038055029087e-18, 1.2657498054430783e-17
-])
-_P1_CHEB = np.array([
-    1.0027803045717265, 0.0027451765837570277, -3.37240456836456e-05,
-    1.3039465877996387e-06, -8.977362126121733e-08, 8.879041215404142e-09,
-    -1.1304764437260006e-09, 1.7368451938885874e-10, -3.088836293566369e-11,
-    6.179620070343051e-12, -1.3628285303321794e-12, 3.260649624431963e-13,
-    -8.390493153679579e-14, 2.2715949868341296e-14, -6.649476182587768e-15,
-    1.905978001484501e-15, -6.998943698090866e-16, 1.1415812995042947e-16,
-    -1.394877549346043e-16, -5.089708752991405e-17, -6.315774200223593e-17,
-    -3.747835943704532e-17, -6.557383948286377e-17, -5.336819161384358e-17,
-    -1.4614448608232376e-17, -7.277419269263228e-17, -4.1262536705884326e-18
-])
-_Q1_CHEB = np.array([
-    2.981372314582739, -0.018139154448572267, 0.0004604727250432597,
-    -2.5533947079856635e-05, 2.2187784778197517e-06, -2.5977194735365343e-07,
-    3.769713746371197e-08, -6.440505408154428e-09, 1.251985974947473e-09,
-    -2.7037085655414845e-10, 6.37399269324142e-11, -1.618963561913587e-11,
-    4.384894552402446e-12, -1.2564827497987848e-12, 3.7812825146302015e-13,
-    -1.1914928855413263e-13, 3.8782919129101206e-14, -1.3391579376625813e-14,
-    4.495570412283071e-15, -1.7262176941126247e-15, 5.114991046295202e-16,
-    -2.684317911813195e-16, 2.385651056346922e-17, -1.0554732655592933e-16,
-    2.0011870922808886e-17, -1.0545496332212484e-18, -1.5345237860883502e-17
-])
-_K_MID_LO, _K_MID_HI = 1.0 / 8.0, 1.0 / 1.5
-_PQ_V_HI = (8.0 / 4.5) ** 2
-
-
-def _besselk01_cheb(n: int, z):
-    """K_0/K_1 for z ≥ 1.5: the scaled Chebyshev fits (≤3e-15)."""
-    u = 1.0 / z
-    t_mid = ((2.0 * _minc(_maxc(u, _K_MID_LO), _K_MID_HI) - (_K_MID_LO + _K_MID_HI))
-             / _k(z, _K_MID_HI - _K_MID_LO))
-    t_big = 16.0 * _minc(_maxc(u, 0.0), _K_MID_LO) - 1.0
-    mid = _cheb_eval(_K0_MID if n == 0 else _K1_MID, t_mid)
-    big = _cheb_eval(_K0_BIG if n == 0 else _K1_BIG, t_big)
-    scaled = torch.where(z > 8.0, big, mid)
-    return scaled * torch.exp(-z) / torch.sqrt(z)
-
-
-def _bessely01_cheb(n: int, z):
-    """Y_0/Y_1 for z ≥ 4.5: the modulus/phase Chebyshev fits (≤4e-15)."""
-    r = _k(z, 8.0) / z
-    v = _minc(_maxc(r * r, 0.0), _PQ_V_HI)
-    t = (2.0 * v - _PQ_V_HI) / _k(z, _PQ_V_HI)
-    p = _cheb_eval(_P0_CHEB if n == 0 else _P1_CHEB, t)
-    q = _cheb_eval(_Q0_CHEB if n == 0 else _Q1_CHEB, t) / (8.0 * z)
-    chi = z - (0.5 * n + 0.25) * _PI
-    amp = torch.sqrt(_k(z, 2.0) / (_PI * z))
-    return amp * (p * torch.sin(chi) + q * torch.cos(chi))
-
-
-def _y01(n: int, zs):
-    return torch.where(zs < 4.5, _bessel_y0y1_small(n, _minc(zs, 4.5)),
-                       _bessely01_cheb(n, _maxc(zs, 4.5)))
-
-
 def bessely(nu, z):
-    """Bessel function of the second kind Y_ν(z), z > 0: integer orders by
-    the log series below 4.5, the Chebyshev fits above and forward
+    """Bessel function of the second kind Y_ν(z), z > 0: integer orders from
+    Y₀ and Y₁ (Cephes' rational and modulus/phase forms) by the upward
     recurrence; fractional orders by :func:`_bessjy_frac`."""
     if _is_static_int(nu):
         n = int(nu)
@@ -1021,9 +1158,9 @@ def bessely(nu, z):
             n = -n
         (z,) = _tensors(z)
         zs = torch.where(z > 0.0, z, torch.ones_like(z))
-        out = _y01(0, zs)
-        if n > 0:
-            prev, cur = out, _y01(1, zs)
+        out = _y0(zs) if n != 1 else _y1(zs)
+        if n > 1:
+            prev, cur = out, _y1(zs)
             for k in range(1, n):
                 prev, cur = cur, (_k(zs, 2.0 * k) / zs) * cur - prev
             out = cur
@@ -1033,48 +1170,17 @@ def bessely(nu, z):
     return _bessjy_frac(nu, z)[1]
 
 
-def _besselk_int_small(n: int, z):
-    """K₀/K₁ power series for small z (A&S 9.6.11)."""
-    q = z * z * 0.25
-    logz2 = torch.log(z * 0.5)
-    term = torch.ones_like(z)
-    if n == 0:
-        acc = torch.zeros_like(z)
-        hk = torch.zeros_like(z)
-        for k in range(1, 40):
-            kf = float(k)
-            term = term * q / _k(z, kf * kf)
-            hk = hk + 1.0 / kf
-            acc = acc + term * hk
-        return -(logz2 + _EULER_GAMMA) * i0(z) + acc
-    acc = torch.full_like(z, -2.0 * _EULER_GAMMA + 1.0)
-    hk = torch.zeros_like(z)
-    hk1 = torch.ones_like(z)
-    for k in range(1, 40):
-        kf = float(k)
-        term = term * q / _k(z, kf * (kf + 1.0))
-        hk = hk + 1.0 / kf
-        hk1 = hk1 + 1.0 / (kf + 1.0)
-        acc = acc + term * (-2.0 * _EULER_GAMMA + hk + hk1)
-    return 1.0 / z + logz2 * i1(z) - (z * 0.25) * acc
-
-
-def _k01(n: int, zs):
-    return torch.where(zs < 1.5, _besselk_int_small(n, _minc(zs, 1.5)),
-                       _besselk01_cheb(n, _maxc(zs, 1.5)))
-
-
 def besselk(nu, z):
     """Modified Bessel function of the second kind K_ν(z), z > 0: integer
-    orders by the series below 1.5, the Chebyshev fits above and upward
+    orders from K₀ and K₁ (Cephes' Chebyshev series) by the upward
     recurrence; fractional orders by :func:`_besselk_frac`."""
     if _is_static_int(nu):
         n = abs(int(nu))  # K_{-ν} = K_ν
         (z,) = _tensors(z)
         zs = torch.where(z > 0.0, z, torch.ones_like(z))
-        out = _k01(0, zs)
-        if n > 0:
-            prev, cur = out, _k01(1, zs)
+        out = _k0(zs) if n != 1 else _k1(zs)
+        if n > 1:
+            prev, cur = out, _k1(zs)
             for k in range(1, n):
                 prev, cur = cur, prev + (_k(zs, 2.0 * k) / zs) * cur
             out = cur
@@ -1137,11 +1243,15 @@ def _besselk_frac_cf2(nu, x):
         delh, h = torch.where(done, delh, delh2), torch.where(done, h, h2)
         ss = torch.where(done, ss, ss2)
         done = done | conv
+        if _settled(done, i):
+            break
     h = a1 * h
     rkmu = torch.sqrt(_k(x, _PI) / (2.0 * x)) * torch.exp(-x) / ss
     rk1 = rkmu * (xmu + x + 0.5 - h) * xi
     for i in range(_STEED_MAX_NL + 1):
         step = nl > float(i)
+        if not bool(step.any()):  # every element has left the recurrence
+            break
         ktemp = (xmu + float(i) + 1.0) * 2.0 * xi * rk1 + rkmu
         rkmu, rk1 = torch.where(step, rk1, rkmu), torch.where(step, ktemp, rk1)
     return rkmu
@@ -1251,17 +1361,22 @@ _ARITH = {"add", "sub", "mul", "div", "rsub", "true_divide", "neg", "__add__", "
           "__neg__"}
 _CALLS = {"exp", "log", "sqrt", "sin", "cos", "sinh", "cosh", "lgamma", "erf", "erfc"}
 _FILLS = {"ones_like", "zeros_like", "full_like", "empty_like", "full"}  # shape only
+#: boolean operations whose second operand is not needed where the first one
+#: decides (True for or, False for and), as C's || and && evaluate it
+_SHORT = {"__or__": True, "bitwise_or": True, "logical_or": True,
+          "__and__": False, "bitwise_and": False, "logical_and": False}
 
 
 class _Route(torch.overrides.TorchFunctionMode):
     """Records the dataflow of the torch operations run under it: one node
     per operation, its inputs (the nodes of its tensor arguments), whether
     it is one of B8's operations (:data:`_ARITH`, :data:`_CALLS`, run
-    inside this module) and, for ``torch.where``, its condition."""
+    inside this module), for ``torch.where`` its condition, and for a
+    boolean or/and (:data:`_SHORT`) its first operand."""
 
     def __init__(self):
         super().__init__()
-        self.counted, self.inputs, self.select = [], [], {}
+        self.counted, self.inputs, self.select, self.short = [], [], {}, {}
         self.nodes = {}  # id(tensor) → (weak reference to it, its node)
 
     def node(self, value):
@@ -1282,6 +1397,11 @@ class _Route(torch.overrides.TorchFunctionMode):
         if func is torch.where and len(args) == 3 and torch.is_tensor(args[0]):
             cond, a, b = args
             self.select[k] = (cond, self.node(cond), self.node(a), self.node(b))
+        if name in _SHORT and len(args) == 2 and all(
+                torch.is_tensor(a) and a.dtype == torch.bool for a in args):
+            first, second = args
+            decided = first if _SHORT[name] else ~first
+            self.short[k] = (decided, self.node(first), self.node(second))
         for o in outs:
             if torch.is_tensor(o):
                 self.nodes[id(o)] = (weakref.ref(o), k)
@@ -1290,8 +1410,9 @@ class _Route(torch.overrides.TorchFunctionMode):
     def per_element(self, outs, shape) -> torch.Tensor:
         """For each element of ``shape``, the counted operations that the
         outputs ``outs`` need there: from the outputs back through every
-        operation's inputs, and through a ``torch.where`` only into the
-        side that the element's condition selects."""
+        operation's inputs, through a ``torch.where`` only into the side
+        that the element's condition selects, and through a boolean or/and
+        into its second operand only where the first does not decide."""
         need = {}
 
         def add(k, mask):
@@ -1314,6 +1435,10 @@ class _Route(torch.overrides.TorchFunctionMode):
                 add(kc, mask)
                 add(ka, mask & cond)
                 add(kb, mask & ~cond)
+            elif k in self.short:
+                decided, kf, ks = self.short[k]
+                add(kf, mask)
+                add(ks, mask & ~torch.broadcast_to(decided, shape))
             else:
                 for i in self.inputs[k]:
                     add(i, mask)
@@ -1336,13 +1461,14 @@ def route_operations(fn, *inputs):
     operations (+ − × ÷, negation) and libm calls (exp, log, sqrt, sin,
     cos, sinh, cosh, lgamma, erf, erfc) that element i of the result needs,
     over the broadcast shape of ``fn``'s tensor outputs.  A ``torch.where``
-    needs its condition and only the side that selects the element, so a
-    route that an argument does not take, and the steps of a fixed loop
-    that a converged argument only carries, count nothing.  Only the
+    needs its condition and only the side that selects the element, and a
+    boolean or/and its second operand only where the first does not decide
+    it, so a route that an argument does not take, and the steps of a loop
+    after the argument's mask has frozen it, count nothing: kernel B8
+    computes one route per argument and leaves each loop there.  Only the
     operations of this module's special functions count (``fn`` may be a
-    model function that calls them).  Kernel B8
-    computes both sides of every select; this is what the arguments need,
-    the operations of the bound of a kernel that calls B8."""
+    model function that calls them): the operations of the bound of a
+    kernel that calls B8."""
     route = _Route()
     with route:
         out = fn(*inputs)

@@ -428,6 +428,49 @@ def test_b8_alone_matches_plain_torch(cuda_device, dtype):
                           5e-10 if dtype == torch.float64 else 1e-5)
 
 
+#: every route's range: both sides of each branch and domain edge, each
+#: series' early and full-length exits
+_B8_WIDE = {"hyp0f1": (-60.0, 60.0), "hyp1f1": (-320.0, 320.0), "hyp2f1": (-1.02, 1.02),
+            "hyp2f0": (-0.05, 0.05), "erf": (-6.0, 6.0), "erfc": (-6.0, 7.0),
+            "lgamma": (-7.9, 30.0), "gamma": (-7.9, 30.0), "besseli_nu": (-5.0, 20.0),
+            "besselk_nu": (-5.0, 60.0), "besseli_0": (-20.0, 20.0), "besseli_1": (-20.0, 20.0)}
+#: the routes' branch points: J/Y's rational form to 5, K's series to 2, I's
+#: to 8, Steed's Temme/CF2 at 2 and Hankel beyond 40, J_n's Miller/upward at
+#: n, 1F1's direct/Kummer at 0 and its domain at ±300, 2F1's at ±1 and 0.99,
+#: ψ's at −32 and 16
+_B8_EDGES = (0.0, 1.0, 2.0, 5.0, 8.0, 16.0, 40.0, 300.0, 0.99, -1.0, -2.0, -5.0, -32.0, -300.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_b8_bit_for_bit_on_every_route(cuda_device, dtype):
+    """Every instance of csrc/special_eval.cu bit for bit its plain version
+    on the card (one route per argument, each loop left where the plain
+    version freezes it, each series where its sum settles): over a range
+    that takes every route, at each branch point and its neighbours, and at
+    NaN, ±0 and ±inf; zeros keep their sign."""
+    from inflatox_torch.ops import special_eval
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    edges = torch.tensor(_B8_EDGES, dtype=dtype, device=cuda_device)
+    special = torch.cat([edges, torch.nextafter(edges, torch.full_like(edges, -np.inf)),
+                         torch.nextafter(edges, torch.full_like(edges, np.inf)),
+                         torch.tensor([np.nan, 0.0, -0.0, np.inf, -np.inf], dtype=dtype,
+                                      device=cuda_device)])
+    for name in special_eval.INSTANCES:
+        lo, hi = _B8_WIDE.get(name, (-34.0, 30.0) if name.startswith("polygamma")
+                              else (-5.0, 300.0))
+        z = torch.empty(1 << 16, dtype=torch.float64, device=cuda_device).uniform_(
+            lo, hi, generator=gen).to(dtype)
+        z = torch.cat([z, special])
+        params = _B8_PARAMS.get(name, ())
+        got = special_eval.special_eval_cuda(name, z, params)
+        want = special_eval.special_eval_torch(name, z, params)
+        same = (got == want) & (torch.signbit(got) == torch.signbit(want))
+        same |= torch.isnan(got) & torch.isnan(want)
+        assert bool(same.all()), (name, z[~same][:4].tolist(), got[~same][:4].tolist(),
+                                  want[~same][:4].tolist())
+
+
 def test_b8_inside_the_grid_point_and_solver_kernels(cuda_device):
     """a·J₀(x)² + K₁(x+2)·y² + 2 through B1, B5a and B6 (each launch runs
     B8 inside, since the model calls special functions), each against its

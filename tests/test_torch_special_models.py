@@ -38,6 +38,7 @@ import inflatox_tpu
 from inflatox_torch.consistency_conditions import GeneralisedAL
 from inflatox_torch.lowering import cuda_codegen
 from inflatox_torch.ops.cuda_kernels import scan_torch
+from inflatox_tpu.native import NativeModel, native_available
 
 S1_EXTENT = (0.3, 2.0, 0.2, 1.2)  # bench cfg4b
 S2_EXTENT = (0.5, 3.0, 0.2, 1.5)
@@ -116,8 +117,10 @@ def test_piecewise_and_sinc_values(models, name, point, value):
 @pytest.mark.parametrize("name", ["C9", "sinc"])
 def test_piecewise_maps_match_jax_in_every_precision(models, name):
     """The grid holds x = 0 (where C9 changes branch and sinc's Piecewise
-    takes its limit) but not the line y = 0, where V_vw ≡ 0 and the port's
-    tail and the JAX package's XLA one part for every model (C14)."""
+    takes its limit) but not the line y = 0, where V_vw ≡ 0: there the JAX
+    package's ``engine="xla"`` leaves V_vw at about 1e-17 and parts from the
+    C oracle, which the port matches (C14, a fault of the reference:
+    test_c14_line_of_zero_v_vw_matches_the_c_oracle)."""
     jax_art, art = models[name]
     extent, shape = (-1.5, 1.5, -1.0, 1.1), (12, 10)
     want = np.stack(inflatox_tpu.consistency_conditions.GeneralisedAL(
@@ -130,6 +133,40 @@ def test_piecewise_maps_match_jax_in_every_precision(models, name):
         assert np.array_equal(np.isnan(got), np.isnan(want)), precision
         fin = np.isfinite(want) & (np.abs(want) > 1e-6 * np.nanmax(np.abs(want)))
         assert np.max(np.abs(got[fin] - want[fin]) / np.abs(want[fin])) < rtol, precision
+
+
+def test_c14_line_of_zero_v_vw_matches_the_c_oracle():
+    """C14, a fault of the reference: on a·x⁴ + y² (a = 2) over the 12 × 10
+    grid of (−1.5, 1.5, −1, 1), whose column 5 is the line y = 0 where
+    V_vw ≡ 0, the port's f64 ``complete_analysis`` equals the C oracle
+    (``inflatox_tpu.native``): identical NaN masks, finite values within
+    1e-12; the JAX package's ``engine="xla"`` leaves V_vw at about 1e-17
+    there and gives a finite consistency on the line, where both give NaN."""
+    if not native_available():
+        pytest.skip("no C compiler for the native oracle")
+    x, y, a = sympy.symbols("x y a")
+
+    def build(package):
+        return package.InflationModelBuilder.new(
+            [x, y], [[1, 0], [0, 1]], a * x**4 + y**2, silent=True, simplify=False,
+            assertions=False).build()
+
+    extent, shape = (-1.5, 1.5, -1.0, 1.0), (12, 10)
+    jax_model = build(inflatox_tpu)
+    oracle = np.stack(NativeModel(jax_model, opt="-O1").complete_analysis(
+        ARGS, *extent, *shape, threads=1))
+    art = inflatox_torch.Compiler(build(inflatox_torch), silent=True).compile()
+    got = np.stack(GeneralisedAL(art, device="cpu", validate_basis=False).complete_analysis(
+        ARGS, *extent, *shape, progress=False))
+    for mask in (np.isnan, np.isposinf, np.isneginf):
+        assert np.array_equal(mask(got), mask(oracle)), mask.__name__
+    fin = np.isfinite(oracle)
+    assert np.all(np.abs(got[fin] - oracle[fin]) <= 1e-12 * np.abs(oracle[fin]))
+    assert np.isnan(oracle[0, :, 5]).all()
+    xla = np.stack(inflatox_tpu.consistency_conditions.GeneralisedAL(
+        inflatox_tpu.Compiler(jax_model, silent=True).compile(), validate_basis=False
+    ).complete_analysis(ARGS, *extent, *shape, progress=False, engine="xla"))
+    assert np.isfinite(xla[0, :, 5]).any()
 
 
 @pytest.mark.parametrize("name", ["S1", "S2", "S3"])
