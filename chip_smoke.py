@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive inflatox_torch's main paths once on an NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA device, the CUDA toolkit (nvcc) and this checkout; builds the
 kernels (B1 and B5: the grid-scan library; B6: the solver library; B8 alone:
@@ -106,8 +106,13 @@ passes or ends the script with a nonzero exit:
     |∇V|² at 64 points against 40-digit mpmath (1e-11); S1's
     ``calc_V_array``/``calc_H_array``; ``precision="dd"`` on S1 must raise,
     naming the function;
-24. kernel B5a (whole model functions, B8 off the staged path): the four
-    on-trajectory kinds over 1,048,576 points of S1's window and of S3's;
+24. kernel B5a (the fused point functions, B8 inside, after the coherence
+    pass that sorts the points by a coarse cell): the four on-trajectory
+    kinds over 1,048,576 points of S1's, S2's and S3's windows; S3's
+    complete_analysis also on the same points sorted by x[0], its outputs
+    permuted back bit for bit the random order's, both timed in turns and
+    their ratio printed (a warp whose lanes take different B8 routes runs
+    each), and without the coherence pass;
 25. kernel B6 with B8 in its derivative: S2, RKF45, 4096 trajectories ×
     2000 rows from initial fields spread over its extent, the first 20 rows
     against the plain version on the card (rtol 1e-12) and trajectories
@@ -118,11 +123,21 @@ passes or ends the script with a nonzero exit:
 27. C9's Piecewise and sinc models at 1024² through B1, B2 and B4, each
     against its plain version.
 
+The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
+each distinct operation of the kind's fused point function once (the least
+work any point kernel must do; B8's operations on the run's points, each
+distinct special call once), the count over the three model functions as
+before printed beside.  With ``--parent DIR`` (the parent commit unpacked,
+e.g. ``git archive``) the parent tree's grid-scan libraries for those
+paths build with the others in phase 2, and after phase 27 each point path
+runs the parent's kernel and this one through their C entries, bit for bit
+equal, in turns (parent, this, this, parent).
+
 Phase 11 takes the plain solver's time from phase 8's call instead of
 timing it twice more; it also prints the attribution of B6's time per
 attempt (``scripts/probe_solver_chain.py``'s instrumented copy of the
 solver, built with the libraries in phase 2).  Phase 2 prints ptxas's
-registers and spills for every library; phases 17 and 21 print the
+registers and spills for every library and for each point-scan instance; phases 17 and 21 print the
 operation bounds of B4, B7d and B1 on D5 counted both ways (every point
 evaluating whole model functions, and the staged kernel's row, column and
 point stages), and the end of the run each kernel's time beside its time
@@ -233,6 +248,40 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def point_instances(log):
+    """{kind: (registers, spill bytes: stores + loads)} of each point-scan
+    kernel instance (``points_scan_kernel<KIND>``, and the special-function
+    models' ``points_coherent_kernel<KIND>`` as "<kind> coherent") in an
+    nvcc log of ``-Xptxas=-v``, kinds by name
+    (inflatox_torch.ops.cuda_kernels.KINDS)."""
+    from inflatox_torch.ops.cuda_kernels import KINDS
+
+    names = {kind_id: kind for kind, (kind_id, _) in KINDS.items()}
+    out, entry, props, spills = {}, None, None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props is not None:
+            spills[props] = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            kind = re.search(r"points_(scan|coherent)_kernelILi(\d+)E", entry)
+            if kind:
+                label = names[int(kind.group(2))] + (" coherent" if kind.group(1) == "coherent"
+                                                     else "")
+                out[label] = (int(m.group(1)), spills.get(entry, 0))
+            entry = None
+    return out
 
 
 def run(cmd):
@@ -437,6 +486,87 @@ def special_ops(fns, *inputs):
         for fn in fns:
             total = total + route_operations(fn, *inputs)[1]
     return total
+
+
+class _MemoSpecial:
+    """The special-function module as the lowered functions see it, each
+    call that repeats an earlier one (the same function, equal arguments)
+    answered with that call's result, as a fused point function makes
+    each distinct call once."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __getattr__(self, name):
+        import torch
+
+        fn = getattr(self.module, name)
+
+        def same(a, b):
+            if torch.is_tensor(a) or torch.is_tensor(b):
+                return (torch.is_tensor(a) and torch.is_tensor(b) and a.shape == b.shape
+                        and bool(torch.equal(a, b)))
+            return a == b
+
+        def call(*args):
+            for (other, other_args), value in self.calls:
+                if other == name and len(other_args) == len(args) and all(
+                        map(same, other_args, args)):
+                    return value
+            value = fn(*args)
+            self.calls.append(((name, args), value))
+            return value
+
+        return call
+
+
+def fused_special_ops(art, kind, *inputs):
+    """Kernel B8's operations at each point of ``inputs`` (coordinates,
+    parameters) in the fused point function of ``kind``: the model values
+    the kind's tail reads (V, V_vv, V_wv, V_ww, |∇V|², as
+    cuda_codegen._POINT_KINDS lists them), each distinct special call once,
+    only the route its argument takes (``special.route_operations``)."""
+    from inflatox_torch.lowering import special as sf
+    from inflatox_torch.lowering.cuda_codegen import _POINT_KINDS
+
+    uses = _POINT_KINDS[kind][0]
+    fns = [getattr(art, attr) for key, attr in (("V", "potential"), ("hesse", "_hesse"),
+                                                  ("gsq", "grad_square")) if key in uses]
+    memo = _MemoSpecial(sf)
+    spaces = [fn.fn.__globals__ for fn in fns]
+    for space in spaces:
+        space["_special"] = memo
+
+    def values(*a):
+        out = []
+        for fn in fns:
+            got = fn(*a)
+            out += [got[k] for k in (0, 2, 3)] if fn is art._hesse else [got]
+        return tuple(out)
+
+    try:
+        with sf.suppress_domain_warnings():
+            return sf.route_operations(values, *inputs)[1]
+    finally:
+        for space in spaces:
+            space["_special"] = sf
+
+
+def fused_point_ops(art, kind, precision="f64", special=0.0):
+    """f64 operations per point of kernels B5a/B5b: each distinct operation
+    of the kind's fused point function once (cuda_codegen.point_fn_ops; in
+    double-double by DD_OPS), the tail, and ``special``, kernel B8's
+    operations per point over the distinct calls (:func:`fused_special_ops`),
+    which a model that calls special functions must give."""
+    from inflatox_torch.lowering.cuda_codegen import point_fn_ops
+
+    ops = point_fn_ops(art, kind, precision)
+    check((ops.get("special", 0) > 0) == (special > 0),
+          f"fused_point_ops: {ops.get('special', 0)} special calls, B8 operations {special}")
+    weigh = sum((DD_OPS.get(k, 1) if precision == "dd" else 1) * v for k, v in ops.items()
+                if k != "special")
+    tail = {"complete_analysis": TAIL_OPS, "consistency_rapidturn": RAPIDTURN_TAIL_OPS}[kind]
+    return weigh + tail + special
 
 
 def grid_special_ops(art, kind, args, extent, n, device, precision):
@@ -1371,6 +1501,7 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
     import torch
 
     from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.ops.build import load_grid_scan
     from inflatox_torch.ops.cuda_kernels import (
         scan_batch_cuda,
         scan_batch_torch,
@@ -1381,7 +1512,7 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
     )
     from inflatox_torch.parallel import parameter_sweep
 
-    rows, b8_total = [], 0
+    rows, b8_total, point_bounds = [], 0, {}
     sf_src = "inflatox_torch/csrc/special.cuh"
 
     # 22. B8 alone
@@ -1439,10 +1570,11 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
     print(f"S1 calc_V_array/calc_H_array {n}²: the kernel's own; phase 23: "
           f"{time.perf_counter() - t:.1f} s")
 
-    # 24. B5a over 1,048,576 points of S1's and S3's windows
+    # 24. B5a over 1,048,576 points of S1's, S2's and S3's windows; S3's
+    # also sorted by x[0]
     t = time.perf_counter()
     points = {}
-    for name, extent in (("S1", S1_EXTENT), ("S3", S2_EXTENT)):
+    for name, extent in (("S1", S1_EXTENT), ("S2", S2_EXTENT), ("S3", S2_EXTENT)):
         rng = np.random.default_rng(24)
         pts = torch.tensor(np.stack([rng.uniform(extent[0], extent[1], SPECIAL_POINTS),
                                      rng.uniform(extent[2], extent[3], SPECIAL_POINTS)], 1),
@@ -1453,6 +1585,34 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
                                              "points", cpu_rtol=CPU_RTOL_SPECIAL)
         b8_total += launches
         points[name] = (launches, max_abs, pts)
+    art3, pts3 = special["S3"], points["S3"][2]
+    order = torch.argsort(pts3[:, 0])
+    pts3_sorted = pts3[order].contiguous()
+    got = scan_points_cuda(art3, "complete_analysis", args, pts3)
+    back = torch.empty_like(got)
+    back[:, order] = scan_points_cuda(art3, "complete_analysis", args, pts3_sorted)
+    check(bool(((back == got) | (back.isnan() & got.isnan())).all()),
+          "S3 sorted by x[0]: the kernel's outputs, permuted back, differ from the random "
+          "order's")
+    random_ms, sorted_ms, windows, _, _ = adaptive_turns(
+        lambda: scan_points_cuda(art3, "complete_analysis", args, pts3),
+        lambda: scan_points_cuda(art3, "complete_analysis", args, pts3_sorted))
+    import probe_grid_stages as probe  # the C entry without the coherence pass
+
+    lib3, p3 = load_grid_scan(art3.cuda_source()), torch.tensor(args, device=device)
+    nopass = probe.points(lib3, "complete_analysis", p3, pts3)
+    check(bool(((nopass == got) | (nopass.isnan() & got.isnan())).all()),
+          "S3: the scan without the coherence pass differs")
+    unsorted_ms = time_ms(lambda: probe.points(lib3, "complete_analysis", p3, pts3), 20)
+    probe._OUT.clear()
+    print(f"B5a S3 complete_analysis at {SPECIAL_POINTS} points on {card}, through the "
+          f"wrapper (the coherence pass first): random order {random_ms:.4f} ms (windows "
+          f"{windows[0]:.4f}, {windows[1]:.4f}), sorted by x[0] {sorted_ms:.4f} ms (windows "
+          f"{windows[2]:.4f}, {windows[3]:.4f}): random / sorted "
+          f"{random_ms / sorted_ms:.3f}; the sorted scan's outputs, permuted back, bit for "
+          f"bit the random order's; without the coherence pass (the C entry, random order) "
+          f"{unsorted_ms:.4f} ms, bit for bit the same")
+    del got, back
     print(f"phase 24: {time.perf_counter() - t:.1f} s")
 
     # 25. S2's background solves at cfg5d's width (B6)
@@ -1533,24 +1693,31 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
                           art, "complete_analysis", precision, n, n,
                           special=grid_special_ops(art, "complete_analysis", args, extent, n,
                                                    device, precision)), ops_per_s)
-    for name in ("S1", "S3"):
+    for name in ("S1", "S2", "S3"):
         art = special[name]
         launches, max_abs, pts = points[name]
         ms, plain_ms, windows, n_k, n_p = adaptive_turns(
             lambda: scan_points_cuda(art, "complete_analysis", args, pts),
             lambda: scan_points_torch(art, "complete_analysis", args, pts))
         sample = pts[:: SPECIAL_POINTS // SF_COUNT_N]
-        b8_ops = special_ops([art.potential, art._hesse, art.grad_square], list(sample.T),
-                             torch.tensor(args, device=device)).double().mean().item()
-        per_point = point_ops(art, b8_ops)
+        p_dev = torch.tensor(args, device=device)
+        b8_ops = fused_special_ops(art, "complete_analysis", list(sample.T),
+                                   p_dev).double().mean().item()
+        per_point = fused_point_ops(art, "complete_analysis", "f64", b8_ops)
         bnd = bound(SPECIAL_POINTS * (16 + 6 * 8), per_point * SPECIAL_POINTS)
+        old_b8 = special_ops([art.potential, art._hesse, art.grad_square], list(sample.T),
+                             p_dev).double().mean().item()
+        old_bnd = bound(SPECIAL_POINTS * (16 + 6 * 8), point_ops(art, old_b8) * SPECIAL_POINTS)
         print(f"timing B5a {name} complete_analysis at {SPECIAL_POINTS} points on {card}: "
               f"kernel {ms:.4f} ms (windows {windows[0]:.4f}, {windows[1]:.4f}), plain torch "
               f"{plain_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_point:.2f} "
-              f"operations a point, of them B8's {b8_ops:.2f}, the mean over {len(sample)} "
-              "of the points)")
+              f"operations a point, each distinct operation of the fused point function once, "
+              f"of them B8's {b8_ops:.2f}, the mean over {len(sample)} of the points; counted "
+              f"over the three model functions as before: {point_ops(art, old_b8):.2f} "
+              f"operations, B8's {old_b8:.2f}, bound {old_bnd[0]:.4f} ms)")
         rows.append(row(f"points_scan_b5a_{name.lower()}_{SPECIAL_POINTS}", grid_src,
                         f"{pk}:1055", launches, max_abs, ms, plain_ms, bnd))
+        point_bounds[f"B5a {name}"] = (pts, bnd, old_bnd)
     b6_row = row(f"solver_b6_rkf_s2_{B_SOLVE}x{STEPS}", "inflatox_torch/csrc/solver.cu",
                  "inflatox_tpu/ops/pallas_solver.py:173", solve["launches"], solve["max_abs"],
                  solve["ms"], solve["plain_ms"], solve["bound"])
@@ -1568,7 +1735,68 @@ def special_phases(special, device, card, row, timed_row, grid_src, pk, s2_parts
           f"ran it; alone (phase 22) the slowest case, {slow['label']}, in the table's "
           "special_b8_eval row")
     rows.append(b8_row)
-    return rows
+    return rows, point_bounds
+
+
+#: the grid-scan headers of the point paths (scripts/tree_headers.py's names)
+PARENT_HEADERS = ("f64", "egno", "s1", "s2", "s3")
+
+
+def start_parent_builds(parent):
+    """Start nvcc, one per library, for the parent tree's grid-scan library
+    of each point path's model (``parent``: the parent commit unpacked,
+    e.g. with ``git archive``), each header generated by the tree's own
+    package (scripts/tree_headers.py), into build/chip_smoke_parent/."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import probe_grid_stages as probe
+    from tree_headers import tree_headers
+
+    headers = tree_headers(parent, PARENT_HEADERS)
+    csrc = os.path.join(parent, "inflatox_torch", "csrc")
+    return {h: probe.start_build(os.path.join(HERE, "build", "chip_smoke_parent", h), headers[h],
+                                 csrc, ()) for h in PARENT_HEADERS}
+
+
+def parent_turns(jobs, cases, arts, card):
+    """Each point path of the run, the parent tree's kernel and this
+    checkout's, both through their library's C entry (this one's as the
+    wrapper launches it: after the coherence pass on a special-function
+    model) with parameters and outputs made beforehand, in two rounds of
+    turns (parent, this, this, parent), outputs bit for bit equal; printed
+    beside the bound counted over the fused point function's distinct work
+    and the old count."""
+    import numpy as np
+    import torch
+
+    import probe_grid_stages as probe
+    from inflatox_torch.ops.build import load_grid_scan
+
+    for label, header, args, pts, bnd, old in cases:
+        parent = probe.finish_build(f"parent {header}", jobs[header])["lib"]
+        art = arts[header]
+        this = load_grid_scan(art.cuda_source("dd" if header == "egno" else "f64"))
+        p = torch.tensor(np.asarray(args, dtype=np.float64), device=pts.device)
+        runs = {tree: (lambda lib=lib: probe.points(lib, "complete_analysis", p, pts,
+                                                    coherent=art.uses_special_functions))
+                for tree, lib in (("parent", parent), ("this", this))}
+        want = runs["this"]().clone()
+        got = runs["parent"]()
+        check(bool(((got == want) | (got.isnan() & want.isnan())).all()),
+              f"{label}: the parent tree's kernel differs from this one")
+        del want, got
+        n = max(3, min(200, int(200 / max(probe.window_ms(runs["this"], 1), 1e-3))))
+        windows = {"parent": [], "this": []}
+        for tree in ("parent", "this", "this", "parent") * 2:
+            windows[tree].append(probe.window_ms(runs[tree], n))
+        ms = {tree: sum(w) / len(w) for tree, w in windows.items()}
+        print(f"{label} complete_analysis at {pts.shape[0]} points in turns with the parent "
+              f"tree on {card}: parent {ms['parent']:.4f} ms, this {ms['this']:.4f} ms "
+              f"({ms['parent'] / ms['this']:.3f}x; windows " + ", ".join(
+                  f"{tree} " + " ".join(f"{v:.4f}" for v in w) for tree, w in windows.items())
+              + f"; {n} launches each, bit-identical); bound {bnd[0]:.4f} ms ({bnd[1]}) over "
+              f"the fused point function's distinct work, {old[0]:.4f} ms ({old[1]}) counted "
+              "over the three model functions as before")
+        probe._OUT.clear()
 
 
 def main() -> int:
@@ -1646,6 +1874,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import probe_solver_chain as chain  # B6's attribution (phase 11)
 
+    parent = sys.argv[2] if sys.argv[1:2] == ["--parent"] else None
+    parent_jobs = start_parent_builds(os.path.abspath(parent)) if parent else {}
+
     jobs = {
         "B1/B5 hyperinflation": (load_grid_scan, art.cuda_source()),
         "B6 hyperinflation": (load_solver, art.cuda_solver_source()),
@@ -1689,9 +1920,12 @@ def main() -> int:
         spills = [int(a) + int(b) for a, b in
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
         stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", log)]
+        points = point_instances(log)
         print(f"ptxas, {name}: {len(regs)} functions, registers {min(regs)}-{max(regs)}, "
               f"spill bytes (stores + loads) at most {max(spills)}, stack frame at most "
-              f"{max(stack)} bytes")
+              f"{max(stack)} bytes" + ("; point-scan instances (registers, spill bytes): "
+                                       + ", ".join(f"{k} {r}, {b}" for k, (r, b) in points.items())
+                                       if points else ""))
 
     # 3. golden values
     v = al.calc_V([2.0, -2.0], [1.0])
@@ -1876,13 +2110,17 @@ def main() -> int:
                                            N_TIMED)
     b5_traced = profiled_ms(points_kernel, "points_scan_kernel", N_TIMED)
     n_pts = pts.shape[0]
-    b5_bound = bound(n_pts * (16 + 6 * 8), point_ops(art) * n_pts)
+    b5_ops = fused_point_ops(art, "complete_analysis")
+    b5_bound = bound(n_pts * (16 + 6 * 8), b5_ops * n_pts)
+    point_cases = [("B5a hyperinflation", "f64", args, pts, b5_bound,
+                    bound(n_pts * (16 + 6 * 8), point_ops(art) * n_pts))]
     print(f"timing B5 complete_analysis at {n_pts} points on {card}: kernel {b5_ms:.4f} ms "
           f"({n_pts / b5_ms * 1e3:.4e} points/s; windows {windows[0]:.4f}, "
           f"{windows[1]:.4f}; torch.profiler {b5_traced}), plain torch "
           f"{b5_plain_ms:.4f} ms (windows {windows[2]:.4f}, {windows[3]:.4f}); bound "
-          f"{b5_bound[0]:.4f} ms ({b5_bound[1]}; {n_pts * 64} bytes, "
-          f"{point_ops(art)} f64 operations per point)")
+          f"{b5_bound[0]:.4f} ms ({b5_bound[1]}; {n_pts * 64} bytes, {b5_ops} f64 operations "
+          f"per point, each distinct operation of the fused point function once; "
+          f"{point_ops(art)} counted over the three model functions as before)")
 
     def row(name, source, replaces, launches, max_abs, ms, plain_ms, bound_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2116,11 +2354,17 @@ def main() -> int:
                                                device, "dd"),
                   planes * n_e * n_e * 8, b4_ops)
         recounts.append((f"B4 {kind}", dd_point_ops(egno, kind) * n_e * n_e, b4_ops))
+    b5b_ops = fused_point_ops(egno, "complete_analysis", "dd")
     timed_row(f"points_scan_b5b_dd_egno_{n_egno}", grid_src, f"{pk}:1101", b5b_launches,
               b5b_max_abs,
               lambda: scan_points_cuda(egno, "complete_analysis", egno_args, egno_pts, "dd"),
               lambda: scan_points_torch(egno, "complete_analysis", egno_args, egno_pts, "dd"),
-              n_egno * (16 + 6 * 8), dd_point_ops(egno, "complete_analysis") * n_egno)
+              n_egno * (16 + 6 * 8), b5b_ops * n_egno)
+    recounts.append(("B5b", dd_point_ops(egno, "complete_analysis") * n_egno, b5b_ops * n_egno))
+    point_cases.append(("B5b EGNO dd", "egno", egno_args, egno_pts,
+                        bound(n_egno * (16 + 6 * 8), b5b_ops * n_egno),
+                        bound(n_egno * (16 + 6 * 8),
+                              dd_point_ops(egno, "complete_analysis") * n_egno)))
 
     t_phase18 = time.perf_counter()
     print(f"phases 1-17: {t_phase18 - t_start:.1f} s")
@@ -2287,7 +2531,8 @@ def main() -> int:
                                        device, "dd"),
               n_dd * 8, b7d_ops)
     for name, whole, staged in recounts:
-        print(f"operation bound of {name}: {staged:.4e} f64 operations for the staged kernel "
+        how = "fused point function" if name == "B5b" else "staged kernel"
+        print(f"operation bound of {name}: {staged:.4e} f64 operations for the {how} "
               f"({bound(0, staged)[0]:.4f} ms), {whole:.4e} with whole model functions at "
               f"every point ({bound(0, whole)[0]:.4f} ms)")
 
@@ -2328,10 +2573,15 @@ def main() -> int:
 
     # 22-27. kernel B8: the special functions alone, then on the main paths
     t_phase22 = time.perf_counter()
-    special_rows = special_phases(special, device, card, row, timed_row, grid_src, pk,
-                                  built["B6 S2, instrumented"][0])
+    special_rows, special_points = special_phases(special, device, card, row, timed_row,
+                                                  grid_src, pk, built["B6 S2, instrumented"][0])
     print(f"phases 22-27: {time.perf_counter() - t_phase22:.1f} s; the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
+    point_cases += [(name, name.split()[1].lower(), np.array(SPECIAL_ARGS), pts, bnd, old)
+                    for name, (pts, bnd, old) in special_points.items()]
+    if parent_jobs:
+        parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
+            k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)
 
     kernels = [
         row("grid_scan_b1", "inflatox_torch/csrc/grid_scan.cu",

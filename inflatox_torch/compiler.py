@@ -176,8 +176,9 @@ class CompiledModel:
         return torch.stack([torch.stack(r) for r in rows])
 
     def cuda_source(self, precision: str = "f64") -> str:
-        """The per-model CUDA/C++ header the grid-scan kernels include
-        (``f_V``, ``f_hesse``, ``f_gsq``, ``f_grad``) in ``precision``
+        """The per-model CUDA/C++ header the grid-scan and point-scan
+        kernels include (the staged ``f_V``, ``f_hesse``, ``f_gsq``,
+        ``f_grad`` and the fused ``f_point_<kind>``) in ``precision``
         (``"f64"``, ``"f32"`` or ``"dd"``), memoised per precision."""
         if precision not in self._cuda_source:
             from .lowering.cuda_codegen import generate_header  # noqa: PLC0415

@@ -64,10 +64,21 @@
 // into (hi, lo) f32 pairs padded with 1.0 into (32, 128) blocks and write
 // f32 output pairs; B5b, the double-double build, replaces _kernel_tf_ot
 // (:1101).  Here the points are exact f64: one thread per point i of a
-// contiguous (n, 2) tensor reads x[2i], x[2i+1], evaluates the whole model
-// functions (its points share nothing) and the tail, and writes n_out
-// planes of (n,), coalesced.  B5a's
-// bound is bytes: 16 bytes read and 8·n_out written per point.
+// contiguous (n, 2) tensor reads x[2i], x[2i+1], runs the header's fused
+// point function of the kind (f_point_<kind>: V, the Hesse and |grad V|^2
+// as the kind needs them, hash-consed together, so that each heavy call --
+// kernel B8's out-of-line special-function routes, dd.cuh's exp, log and
+// pow -- is made once a point however many model functions share it; then
+// the tail) and writes n_out planes of (n,), coalesced.  Points share
+// nothing, so the grid kernels' row and column stages do not apply.  B5a
+// is bound by its operations on the special-function models (B8) and by
+// its bytes otherwise (16 read and 8·n_out written per point); B5b by its
+// double-double operations.  The launch shape follows the bound (below,
+// INFLX_POINT_BLOCKS): warps in flight for the byte-bound models, at most
+// 128 or 64 registers for double-double and B8.  The special-function
+// models run the coherent kernel: each block sorts its tile of points by a
+// coarse cell before it evaluates them, so that a warp takes neighbouring
+// points, and with them the same B8 routes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,6 +142,31 @@ static const int64_t kMaxSets = 65535;
 #endif
 static const int kRows = INFLX_ROWS;
 static_assert(kRows >= 1 && kRows <= 32, "INFLX_ROWS must be in 1..32");
+// Threads of a point-scan block, and the blocks that __launch_bounds__ asks
+// to fit on one SM, by library (scripts/probe_grid_stages.py's trials with
+// -DINFLX_POINT_THREADS and -DINFLX_POINT_BLOCKS; PERF.md): double-double,
+// two blocks (at most 128 registers: 1.26x faster than one block at 255
+// registers, spills included); f64 with special functions
+// (INFLX_SPECIAL_FUNCTIONS, from the header), four (at most 64 registers);
+// a byte-bound f64 model (INFLX_POINT_BYTE_BOUND, from the header: its
+// operations a point below the card's operations per byte moved), five (at
+// most 48 registers, 40 warps an SM in flight); otherwise the registers
+// ptxas picks.
+#ifndef INFLX_POINT_THREADS
+#define INFLX_POINT_THREADS 256
+#endif
+#ifndef INFLX_POINT_BLOCKS
+#if INFLX_PRECISION == INFLX_DD
+#define INFLX_POINT_BLOCKS 2
+#elif defined(INFLX_SPECIAL_FUNCTIONS)
+#define INFLX_POINT_BLOCKS 4
+#elif defined(INFLX_POINT_BYTE_BOUND)
+#define INFLX_POINT_BLOCKS 5
+#else
+#define INFLX_POINT_BLOCKS 1
+#endif
+#endif
+static const int kPointThreads = INFLX_POINT_THREADS;
 
 // The model functions each kind evaluates.
 __host__ __device__ constexpr bool inflx_uses_v(int kind) {
@@ -196,9 +232,8 @@ __device__ __forceinline__ void inflx_col_stage(const coord_t* x, const coord_t*
   if (inflx_uses_grad(KIND)) f_grad_col(x, p, c + L::g_c);
 }
 
-// The model functions at one point: from the row values r and column
-// values c of the kind's layout (the grid kernels), or whole (the point
-// kernels, whose points share nothing).
+// The model functions at one point, from the row values r and column values
+// c of the kind's layout.
 template <int KIND>
 struct inflx_staged {
   typedef inflx_layout<KIND> L;
@@ -213,13 +248,6 @@ struct inflx_staged {
   __device__ __forceinline__ void grad(real_t* g) const {
     f_grad_point(x, p, r + L::g_r, c + L::g_c, g);
   }
-};
-struct inflx_whole {
-  const coord_t *x, *p;
-  __device__ __forceinline__ real_t V() const { return f_V(x, p); }
-  __device__ __forceinline__ void hesse(real_t* h) const { f_hesse(x, p, h); }
-  __device__ __forceinline__ real_t gsq() const { return f_gsq(x, p); }
-  __device__ __forceinline__ void grad(real_t* g) const { f_grad(x, p, g); }
 };
 
 // One kind at one point: writes o[k * plane] for the kind's n_out planes.
@@ -324,18 +352,162 @@ grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
   }
 }
 
-// One thread per point: the whole model functions.
+// One analysis kind at one point: the header's fused point function of the
+// kind (its model values hash-consed together, each heavy call once, then
+// the tail), out[0 .. inflx_n_out(KIND) - 1].
 template <int KIND>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void inflx_point_fn(const coord_t* x, const coord_t* p, real_t* o) {
+  if constexpr (KIND == KIND_COMPLETE_ANALYSIS) {
+    f_point_complete_analysis(x, p, o);
+  } else if constexpr (KIND == KIND_CONSISTENCY) {
+    f_point_consistency(x, p, o);
+  } else if constexpr (KIND == KIND_CONSISTENCY_RAPIDTURN) {
+    f_point_consistency_rapidturn(x, p, o);
+  } else {
+    f_point_epsilon_v(x, p, o);
+  }
+}
+
+// One thread per point.
+template <int KIND>
+__global__ void __launch_bounds__(kPointThreads, INFLX_POINT_BLOCKS)
 points_scan_kernel(const real_t* __restrict__ p_in, const real_t* __restrict__ pts,
                    real_t* __restrict__ out, int64_t n) {
+  INFLX_PARAMS(p_in)
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  INFLX_PARAMS(p_in)
   const coord_t x[2] = {inflx_point(pts[2 * i]), inflx_point(pts[2 * i + 1])};
-  const inflx_whole m = {x, p};
-  inflx_evaluate<KIND>(m, out + i, n);
+  real_t o[inflx_n_out(KIND)];
+  inflx_point_fn<KIND>(x, p, o);
+#pragma unroll
+  for (int k = 0; k < inflx_n_out(KIND); ++k) out[k * n + i] = o[k];
 }
+
+#if INFLX_PRECISION == INFLX_F64 && defined(INFLX_SPECIAL_FUNCTIONS)
+// The coherent point scan of the special-function models.  Kernel B8 takes
+// one route per argument (a series, a continued fraction, a rational form,
+// an asymptotic sum), so a warp whose lanes hold unrelated points runs the
+// union of their routes.  A block takes a tile of kTilePoints consecutive
+// points, sorts their indices in shared memory by a coarse cell of (x0, x1)
+// over the tile's own finite bounding box -- a counting sort: histogram,
+// exclusive scan, scatter; x0-major, kPointThreads / 8 cells on x0 and 8 on
+// x1 -- and then thread t evaluates the tile's sorted points t,
+// t + kPointThreads, ..., so that each warp takes neighbouring points.  Each
+// point's arithmetic is unchanged, so are its bits; its outputs go back to
+// its own place (the writes of a tile stay within its rows of each plane).
+static const int kTileRounds = 4;  // points a thread evaluates
+static const int kTilePoints = kTileRounds * kPointThreads;
+static const int kCellsX1 = 8;
+static const int kCellsX0 = kPointThreads / kCellsX1;
+static_assert(kCellsX0 * kCellsX1 == kPointThreads && kCellsX0 > 0, "one bin a thread");
+
+__device__ __forceinline__ unsigned long long inflx_order_key(double v) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+__device__ __forceinline__ double inflx_order_value(unsigned long long k) {
+  return __longlong_as_double((long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+}
+
+// The cell of one coordinate among `cells`: 0 for NaN, ±inf at the edges,
+// 0 everywhere when the bounds are empty or their width overflows.
+__device__ __forceinline__ int inflx_cell(double v, unsigned long long lo_key,
+                                          unsigned long long hi_key, int cells) {
+  const double lo = inflx_order_value(lo_key), hi = inflx_order_value(hi_key);
+  const double scale = hi > lo ? cells / (hi - lo) : 0.0;
+  const double c = (v - lo) * (isfinite(scale) ? scale : 0.0);
+  return c >= cells ? cells - 1 : (c >= 0.0 ? (int)c : 0);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kPointThreads, INFLX_POINT_BLOCKS)
+points_coherent_kernel(const real_t* __restrict__ p_in, const real_t* __restrict__ pts,
+                       real_t* __restrict__ out, int64_t n) {
+  __shared__ double xs[2][kTilePoints];
+  __shared__ unsigned short order[kTilePoints];
+  __shared__ int bins[kPointThreads];
+  __shared__ int warp_sums[kPointThreads / 32];
+  __shared__ unsigned long long lo[2], hi[2];
+  INFLX_PARAMS(p_in)
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int64_t base = (int64_t)blockIdx.x * kTilePoints;
+  const int count = n - base < kTilePoints ? (int)(n - base) : kTilePoints;
+  if (t < 2) {
+    lo[t] = ~0ull;
+    hi[t] = 0ull;
+  }
+  bins[t] = 0;
+  __syncthreads();
+  // the tile's points into shared memory, and their finite bounds
+  unsigned long long l[2] = {~0ull, ~0ull}, h[2] = {0ull, 0ull};
+  for (int k = t; k < count; k += kPointThreads) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const double v = pts[2 * (base + k) + a];
+      xs[a][k] = v;
+      if (isfinite(v)) {
+        const unsigned long long key = inflx_order_key(v);
+        l[a] = key < l[a] ? key : l[a];
+        h[a] = key > h[a] ? key : h[a];
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    for (int d = 16; d > 0; d /= 2) {
+      const unsigned long long lo_d = __shfl_xor_sync(0xffffffffu, l[a], d);
+      const unsigned long long hi_d = __shfl_xor_sync(0xffffffffu, h[a], d);
+      l[a] = lo_d < l[a] ? lo_d : l[a];
+      h[a] = hi_d > h[a] ? hi_d : h[a];
+    }
+    if (lane == 0) {
+      atomicMin(&lo[a], l[a]);
+      atomicMax(&hi[a], h[a]);
+    }
+  }
+  __syncthreads();
+  // histogram of the cells, x0-major
+  int cell[kTileRounds];
+#pragma unroll
+  for (int j = 0; j < kTileRounds; ++j) {
+    const int k = t + j * kPointThreads;
+    if (k < count) {
+      cell[j] = inflx_cell(xs[0][k], lo[0], hi[0], kCellsX0) * kCellsX1 +
+                inflx_cell(xs[1][k], lo[1], hi[1], kCellsX1);
+      atomicAdd(&bins[cell[j]], 1);
+    }
+  }
+  __syncthreads();
+  // exclusive scan of the bins, one a thread
+  const int mine = bins[t];
+  int inclusive = mine;
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, inclusive, d);
+    if (lane >= d) inclusive += v;
+  }
+  if (lane == 31) warp_sums[warp] = inclusive;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += warp_sums[w];
+  bins[t] = before + inclusive - mine;
+  __syncthreads();
+  // scatter: the tile's indices in cell order
+#pragma unroll
+  for (int j = 0; j < kTileRounds; ++j) {
+    const int k = t + j * kPointThreads;
+    if (k < count) order[atomicAdd(&bins[cell[j]], 1)] = (unsigned short)k;
+  }
+  __syncthreads();
+  for (int s = t; s < count; s += kPointThreads) {
+    const int k = order[s];
+    const coord_t x[2] = {xs[0][k], xs[1][k]};
+    real_t o[inflx_n_out(KIND)];
+    inflx_point_fn<KIND>(x, p, o);
+#pragma unroll
+    for (int q = 0; q < inflx_n_out(KIND); ++q) out[q * n + base + k] = o[q];
+  }
+}
+#endif
 
 #define INFLX_ANALYSIS_CASES(LAUNCH)                                   \
   case KIND_COMPLETE_ANALYSIS: LAUNCH(KIND_COMPLETE_ANALYSIS); break;  \
@@ -372,10 +544,12 @@ int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
   grid_scan_kernel<K><<<grid, block, 0, s>>>(pp, po, x0a, dx0, x1a, dx1, \
                                              n0, n1, inflx_n_out(K) * n0 * n1)
   switch (kind) {
+#ifndef INFLX_POINTS_ONLY  // scripts/probe_grid_stages.py's point-kernel trials
     INFLX_ANALYSIS_CASES(INFLX_GRID)
     case KIND_POTENTIAL: INFLX_GRID(KIND_POTENTIAL); break;
     case KIND_HESSE: INFLX_GRID(KIND_HESSE); break;
     case KIND_GRADIENT: INFLX_GRID(KIND_GRADIENT); break;
+#endif
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -398,8 +572,8 @@ int inflx_grid_scan(int kind, const void* p, void* out, double x0a,
 int inflx_points_scan(int kind, const void* p, const void* pts, void* out,
                       int64_t n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(kThreads);
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+  const dim3 block(kPointThreads);
+  const dim3 grid((unsigned)((n + kPointThreads - 1) / kPointThreads));
   cudaStream_t s = (cudaStream_t)stream;
   const real_t* pp = (const real_t*)p;
   const real_t* px = (const real_t*)pts;
@@ -412,6 +586,32 @@ int inflx_points_scan(int kind, const void* p, const void* pts, void* out,
   }
 #undef INFLX_POINTS
   return (int)cudaGetLastError();
+}
+
+// The same through the coherent kernel (the f64 library of a model that
+// calls special functions; any other library refuses it).
+int inflx_points_scan_coherent(int kind, const void* p, const void* pts, void* out,
+                               int64_t n, void* stream) {
+#if INFLX_PRECISION == INFLX_F64 && defined(INFLX_SPECIAL_FUNCTIONS)
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 block(kPointThreads);
+  const dim3 grid((unsigned)((n + kTilePoints - 1) / kTilePoints));
+  cudaStream_t s = (cudaStream_t)stream;
+  const real_t* pp = (const real_t*)p;
+  const real_t* px = (const real_t*)pts;
+  real_t* po = (real_t*)out;
+#define INFLX_POINTS(K) points_coherent_kernel<K><<<grid, block, 0, s>>>(pp, px, po, n)
+  switch (kind) {
+    INFLX_ANALYSIS_CASES(INFLX_POINTS)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef INFLX_POINTS
+  return (int)cudaGetLastError();
+#else
+  (void)kind, (void)p, (void)pts, (void)out, (void)n, (void)stream;
+  return (int)cudaErrorInvalidValue;
+#endif
 }
 
 const char* inflx_error_string(int code) {

@@ -3,19 +3,24 @@
 Two headers, one per kernel library.  :func:`generate_header` (2-field
 models only) defines what the grid and point scans need, with the registry
 slots of :mod:`inflatox_torch.lowering.registry` (``x[i]`` fields, ``p[i]``
-parameters), in one of three precisions:
+parameters), in one of three precisions.  The grid kernels read four model
+functions, each in three stages (:func:`_emit_grid_fn`): ``<f>_row``
+(what reads only ``x[0]`` and ``p``), ``<f>_col`` (``x[1]`` and ``p``)
+and ``<f>_point``, which reads their values; :func:`grid_stage_ops` counts
+each stage's operations:
 
-    f_V(x, p)           potential V
-    f_hesse(x, p, out)  projected Hesse: out[0..3] = V_vv, V_vw, V_wv, V_ww
-    f_gsq(x, p)         |∇V|²
-    f_grad(x, p, out)   out[0..1] = ∂_0 V, ∂_1 V
+    f_V       potential V
+    f_hesse   projected Hesse: out[0..3] = V_vv, V_vw, V_wv, V_ww
+    f_gsq     |∇V|²
+    f_grad    out[0..1] = ∂_0 V, ∂_1 V
 
 ``f_hesse`` and ``f_grad`` write every output of their lowered function at
-once, so the outputs share its CSE work.  Each is also emitted in three
-stages for the grid kernels (:func:`_emit_grid_fn`): ``<f>_row`` (what reads
-only ``x[0]`` and ``p``), ``<f>_col`` (``x[1]`` and ``p``) and
-``<f>_point``, which reads their values; :func:`grid_stage_ops` counts each
-stage's operations.
+once, so the outputs share its CSE work.  The point kernels read one fused
+function per analysis kind, ``f_point_<kind>(x, p, out)``
+(:func:`_emit_point_fn`): the model values the kind reads, hash-consed
+together so that each heavy call is made once a point, then the kind's
+tail (``csrc/anguelova.cuh``); :func:`point_fn_ops` counts its distinct
+operations.
 
 * ``"f64"`` (kernels B1, B5a): ``double`` coordinates, parameters and
   values;
@@ -52,10 +57,9 @@ double* xd, const double* p)`` (``xd[i]`` the field velocities), and
 Each body is translated from the model's torch lowering
 (:mod:`inflatox_torch.lowering.torch_lowering`) through Python's ``ast``:
 the same operations, in the same order, fully parenthesised — integer powers
-through ``inflx_powi`` (the lowering's ``_ipow``), the same CSE locals when
-the model was compiled with ``cse=True``; the staged functions and the
-solver's are hash-consed (:class:`_Dag`), which names repeated operations
-once and changes none.  Each operation rounds once, as
+through ``inflx_powi`` (the lowering's ``_ipow``), every function
+hash-consed (:class:`_Dag`), which names repeated operations once and
+changes none.  Each operation rounds once, as
 the corresponding torch kernel does, so the kernels agree with their plain
 PyTorch versions to the last bit wherever both use the same libm (on the
 card: CUDA's).  The headers keep FMA contraction out differently (see
@@ -84,7 +88,7 @@ import numpy as np
 from ..ops.cuda_kernels import PRECISIONS
 from .dd_lowering import DEMOTED, dd_tree
 
-__all__ = ["generate_header", "generate_solver_header", "grid_stage_ops"]
+__all__ = ["generate_header", "generate_solver_header", "grid_stage_ops", "point_fn_ops"]
 
 #: torch functions of the lowered source → C functions
 _C_FUNCS = {
@@ -169,8 +173,8 @@ class _Ctx:
     calls; ``real`` is ``"double"`` or ``"float"``; ``dd`` translates a
     tree rewritten by :func:`dd_tree` into double-double; ``values`` holds
     the Python values of the scalar CSE locals (used in float mode);
-    ``dag``, when set, hash-conses every operation into it
-    (:meth:`sub`), and ``names`` maps each CSE local to its value there."""
+    ``dag`` hash-conses every operation (:meth:`sub`), and ``names`` maps
+    each CSE local to its value there."""
 
     rn: bool = False
     real: str = "double"
@@ -178,7 +182,7 @@ class _Ctx:
     fast_div: bool = False
     scalars: set = field(default_factory=set)
     values: dict = field(default_factory=dict)
-    dag: "_Dag | None" = None
+    dag: "_Dag" = field(default_factory=lambda: _Dag())
     names: dict = field(default_factory=dict)
 
     def literal(self, value) -> str:
@@ -193,10 +197,8 @@ class _Ctx:
         return f"({left} / {right})"
 
     def sub(self, node) -> str:
-        """C text of a child node: its whole expression, or with a dag the
-        name of its node there (leaves and constants stay inline)."""
-        if self.dag is None:
-            return _c_dd(node, self) if self.dd else _c(node, self)
+        """C text of a child node: the name of its node in the dag (leaves
+        and constants stay inline)."""
         if isinstance(node, ast.Name) and node.id in self.names:
             return self.names[node.id]
         text = _c_dd(node, self) if self.dd else _c(node, self)
@@ -509,28 +511,21 @@ def _head_ops(node, ctx: _Ctx) -> dict:
     return {}
 
 
-def _translate(lowered, ctx: _Ctx, ctype: str = "") -> tuple:
-    """(C lines, C text of each returned output) of a lowered function.
-    With ``ctx.dag`` every operation is hash-consed into it and there are no
-    lines (an output is a node name or a leaf); without, each CSE local is
-    one line ``const <ctype> <local> = <its whole expression>;``, as the
-    lowering wrote it."""
+def _translate(lowered, ctx: _Ctx) -> list:
+    """The C text of each returned output of a lowered function, every
+    operation hash-consed into ``ctx.dag`` (an output is a node name or a
+    leaf)."""
     fn = dd_tree(lowered) if ctx.dd else ast.parse(lowered.source).body[0]
     ctx.names, ctx.scalars, ctx.values = {}, set(), {}  # CSE locals are per function
-    lines = []
     for stmt in fn.body:
         if isinstance(stmt, ast.Assign):
             (target,) = stmt.targets
             if not ctx.dd and _is_scalar(stmt.value, ctx.scalars):
                 ctx.scalars.add(target.id)
                 ctx.values[target.id] = _scalar_value(stmt.value, ctx.values)
-            value = ctx.sub(stmt.value)
-            if ctx.dag is None:
-                lines.append(f"  const {ctype} {target.id} = {value};\n")
-            else:
-                ctx.names[target.id] = value
+            ctx.names[target.id] = ctx.sub(stmt.value)
         elif isinstance(stmt, ast.Return):
-            return "".join(lines), [ctx.sub(v) for v in _returned(stmt)]
+            return [ctx.sub(v) for v in _returned(stmt)]
     raise ValueError(f"lowered function {lowered.name} has no return")
 
 
@@ -661,8 +656,8 @@ _SOLVER_SLOTS = ("const double* __restrict__ x, const double* __restrict__ xd, "
 
 def _emit_eom_h(artifact) -> str:
     """``f_eom_h(x, xd, p)``: H from the Friedmann constraint."""
-    ctx = _Ctx(rn=True, dag=_Dag())
-    _, (ret,) = _translate(artifact.eom_h, ctx)
+    ctx = _Ctx(rn=True)
+    (ret,) = _translate(artifact.eom_h, ctx)
     return (f"INFLX_FN double f_eom_h({_SOLVER_SLOTS}) {{\n  (void)x; (void)xd; (void)p;\n"
             + _lines(ctx.dag, ctx.dag.closure([ret]), "double")
             + f"  return {ret};\n}}\n\n")
@@ -672,9 +667,9 @@ def _deriv_body(artifact, fast_div: bool) -> tuple:
     """(C lines, outputs) of the merged derivative: the velocities, the n
     EoM terms and Ḣ, hash-consed together."""
     n = artifact.n_fields
-    ctx = _Ctx(rn=True, fast_div=fast_div, dag=_Dag())
-    outs = [f"xd[{a}]" for a in range(n)] + _translate(artifact.eom, ctx)[1]
-    outs += _translate(artifact.eom_hdot, ctx)[1]
+    ctx = _Ctx(rn=True, fast_div=fast_div)
+    outs = [f"xd[{a}]" for a in range(n)] + _translate(artifact.eom, ctx)
+    outs += _translate(artifact.eom_hdot, ctx)
     if len(outs) != 2 * n + 1:
         raise ValueError(f"the EoM of a {n}-field model has {len(outs) - n - 1} terms")
     return _lines(ctx.dag, ctx.dag.closure(outs), "double"), outs
@@ -752,9 +747,8 @@ def _stages(dag: _Dag, outputs) -> _Stages:
 
 def _grid_fn(lowered, n_out, precision):
     """(dag, outputs, stages) of one grid-scan model function."""
-    ctx = _Ctx(real="float" if precision == "f32" else "double", dd=precision == "dd",
-               dag=_Dag())
-    _, outs = _translate(lowered, ctx)
+    ctx = _Ctx(real="float" if precision == "f32" else "double", dd=precision == "dd")
+    outs = _translate(lowered, ctx)
     if n_out is not None and len(outs) != n_out:
         raise ValueError(f"{lowered.name} returns {len(outs)} values, not {n_out}")
     if n_out is None and len(outs) != 1:
@@ -763,38 +757,27 @@ def _grid_fn(lowered, n_out, precision):
 
 
 def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> tuple:
-    """One grid-scan model function of ``x`` and ``p`` as three stages and
-    whole: ``<name>_row(x, p, r)`` writes the row values (``<NAME>_NR`` of
-    them) from x[0], ``<name>_col(x, p, c)`` the column values
-    (``<NAME>_NC``) from x[1], and ``<name>_point(x, p, r, c[, out])`` the
-    function from both; ``<name>(x, p[, out])`` is the function whole, one
-    line per CSE local of the lowering, for the point kernels, whose points
-    share nothing (nvcc merges their repeats itself; B5a and B5b ran 5-10 %
-    slower with the hash-consed nodes in their place, PERF.md).  With
-    ``n_out`` None the function returns the lowered function's one output,
-    else it writes its ``n_out`` outputs to ``out[0..n_out-1]``.  Returns
-    (C text, number of row values)."""
+    """One grid-scan model function of ``x`` and ``p`` in three stages:
+    ``<name>_row(x, p, r)`` writes the row values (``<NAME>_NR`` of them)
+    from x[0], ``<name>_col(x, p, c)`` the column values (``<NAME>_NC``)
+    from x[1], and ``<name>_point(x, p, r, c[, out])`` the function from
+    both.  With ``n_out`` None the point stage returns the lowered
+    function's one output, else it writes its ``n_out`` outputs to
+    ``out[0..n_out-1]``.  Returns (C text, number of row values)."""
     dag, outs, st = _grid_fn(lowered, n_out, precision)
-    coord = "dd" if precision == "dd" else ("float" if precision == "f32" else "double")
-    real = "double" if precision == "dd" else coord
-    demote = (lambda o: f"dd_to_f64({o})") if precision == "dd" else (lambda o: o)
-    whole, whole_outs = _translate(lowered, _Ctx(real=real, dd=precision == "dd"), coord)
+    coord, real = _types(precision)
+    demote = _demote(precision)
     upper = name.upper()
     xp = f"const {coord}* __restrict__ x, const {coord}* __restrict__ p"
     rc = f"const {coord}* __restrict__ r, const {coord}* __restrict__ c"
     reads = "".join(f"  const {coord} v{k} = r[{i}];\n" for i, k in enumerate(st.row_out))
     reads += "".join(f"  const {coord} v{k} = c[{i}];\n" for i, k in enumerate(st.col_out))
-    def tail(values):
-        if n_out is None:
-            return f"  return {demote(values[0])};\n}}\n\n"
-        return "".join(f"  out[{k}] = {demote(v)};\n" for k, v in enumerate(values)) + "}\n\n"
-
     if n_out is None:
         point_head = f"INFLX_FN {real} {name}_point({xp}, {rc}) {{\n"
-        whole_head = f"INFLX_FN {real} {name}({xp}) {{\n"
+        tail = f"  return {demote(outs[0])};\n}}\n\n"
     else:
         point_head = f"INFLX_FN void {name}_point({xp}, {rc}, {real}* __restrict__ out) {{\n"
-        whole_head = f"INFLX_FN void {name}({xp}, {real}* __restrict__ out) {{\n"
+        tail = "".join(f"  out[{k}] = {demote(v)};\n" for k, v in enumerate(outs)) + "}\n\n"
     return (
         f"#define {upper}_NR {len(st.row_out)}\n#define {upper}_NC {len(st.col_out)}\n"
         f"INFLX_FN void {name}_row({xp}, {coord}* __restrict__ r) {{\n  (void)x; (void)p;\n"
@@ -804,9 +787,19 @@ def _emit_grid_fn(name: str, lowered, n_out: int | None, precision: str) -> tupl
         + _lines(dag, st.col, coord)
         + "".join(f"  c[{i}] = v{k};\n" for i, k in enumerate(st.col_out)) + "}\n"
         + point_head + "  (void)x; (void)p; (void)r; (void)c;\n" + reads
-        + _lines(dag, st.point, coord) + tail(outs)
-        + whole_head + "  (void)x; (void)p;\n" + whole + tail(whole_outs)
+        + _lines(dag, st.point, coord) + tail
     ), len(st.row_out)
+
+
+def _types(precision: str) -> tuple:
+    """(coordinate type, value type) of a header's model functions."""
+    if precision == "dd":
+        return "dd", "double"
+    return ("float", "float") if precision == "f32" else ("double", "double")
+
+
+def _demote(precision: str):
+    return (lambda o: f"dd_to_f64({o})") if precision == "dd" else (lambda o: o)
 
 
 #: (header function, lowered function attribute, outputs written to out[],
@@ -819,6 +812,88 @@ _GRID_FUNCTIONS = (
 )
 
 
+#: the analysis kinds of the point kernels B5a and B5b (``KIND_*`` in
+#: ``csrc/grid_scan.cu``): the model values each reads (``inflx_uses_*``
+#: there) and its tail (``csrc/anguelova.cuh``), as ``inflx_evaluate`` calls it
+_POINT_KINDS = {
+    "complete_analysis": (("V", "hesse", "gsq"),
+                          "inflx_tail_complete({V}, {H0}, {H2}, {H3}, {GSQ}, out);"),
+    "consistency": (("V", "hesse"), "out[0] = inflx_tail_consistency({V}, {H0}, {H2}, {H3});"),
+    "consistency_rapidturn": (("V", "hesse"),
+                              "out[0] = inflx_tail_consistency_rapidturn({V}, {H0}, {H2}, {H3});"),
+    "epsilon_v": (("V", "gsq"), "out[0] = inflx_tail_epsilon_v({V}, {GSQ});"),
+}
+#: model value → (lowered function, the names of its outputs that a tail
+#: reads; V_vw is not read)
+_POINT_VALUES = {"V": ("potential", ("V",)), "hesse": ("_hesse", ("H0", None, "H2", "H3")),
+                 "gsq": ("grad_square", ("GSQ",))}
+
+def _point_dag(artifact, kind: str, precision: str) -> tuple:
+    """(dag, {value name: C text}) of the model values a point kind reads,
+    every operation of them hash-consed in one dag."""
+    ctx = _Ctx(real="float" if precision == "f32" else "double", dd=precision == "dd")
+    values = {}
+    for fn in _POINT_KINDS[kind][0]:
+        attr, names = _POINT_VALUES[fn]
+        outs = _translate(getattr(artifact, attr), ctx)
+        if len(outs) != len(names):
+            raise ValueError(f"{attr} returns {len(outs)} values, not {len(names)}")
+        values.update((n, o) for n, o in zip(names, outs) if n)
+    return ctx.dag, values
+
+
+def _emit_point_fn(artifact, kind: str, precision: str) -> str:
+    """``f_point_<kind>(x, p, out)``: the kind's model values at one point,
+    every operation of them a node of one dag, so that each heavy call
+    (kernel B8's out-of-line routes, ``dd.cuh``'s ``exp``, ``log`` and
+    ``pow``) is made once however many model functions repeat it; then its
+    tail, out[0..n_out-1] (the order of ``inflx_evaluate`` in
+    ``csrc/grid_scan.cu``).  Equal text is the same operations on the same
+    operands, so the fusion moves no bit."""
+    coord, real = _types(precision)
+    demote = _demote(precision)
+    dag, values = _point_dag(artifact, kind, precision)
+    tail = _POINT_KINDS[kind][1].format(**{n: demote(v) for n, v in values.items()})
+    return (f"INFLX_FN void f_point_{kind}(const {coord}* __restrict__ x, "
+            f"const {coord}* __restrict__ p,\n    {real}* __restrict__ out) {{\n"
+            "  (void)x; (void)p;\n" + _lines(dag, dag.closure(values.values()), coord)
+            + f"  {tail}\n}}\n\n")
+
+
+def point_fn_ops(artifact, kind: str, precision: str = "f64") -> dict:
+    """Operations of the point kind's model values, each distinct operation
+    of their fused dag once (the least work any point kernel must do), by
+    name as :func:`grid_stage_ops` counts them (``special``: the distinct
+    kernel B8 calls; in double-double each value's demotion to f64 as one
+    ``f64``); the tail not counted."""
+    dag, values = _point_dag(artifact, kind, precision)
+    total = {}
+    for k in dag.closure(values.values()):
+        for op, v in dag.ops[k].items():
+            total[op] = total.get(op, 0) + v
+    if precision == "dd":
+        total["f64"] = len(values)
+    return total
+
+
+#: f64 operations of the complete-analysis tail (``csrc/anguelova.cuh``, as
+#: ``chip_smoke.py`` counts it), the bytes a complete-analysis point moves
+#: (16 read, 48 written), and the H100's f64 operations per byte of memory
+#: (33.5 TFLOP/s over 3.35 TB/s)
+_TAIL_OPS, _POINT_BYTES, _OPS_PER_BYTE = 41, 64, 10
+
+
+def _byte_bound(artifact) -> bool:
+    """True if the f64 point scan of a model without special functions is
+    bound by its bytes on the H100: its fused complete-analysis function
+    and tail do at most as many operations as the card does while it moves
+    the point's bytes.  Such a library asks for five 256-thread blocks an
+    SM (``INFLX_POINT_BYTE_BOUND``, ``csrc/grid_scan.cu``): warps in flight
+    set its pace, not the registers a thread may hold."""
+    ops = point_fn_ops(artifact, "complete_analysis", "f64")
+    return sum(ops.values()) + _TAIL_OPS <= _POINT_BYTES * _OPS_PER_BYTE
+
+
 def generate_header(artifact, precision: str = "f64") -> str:
     """Emit the grid/point-scan header for a 2-field :class:`CompiledModel`
     in ``precision`` (``"f64"``, ``"f32"`` or ``"dd"``)."""
@@ -829,13 +904,17 @@ def generate_header(artifact, precision: str = "f64") -> str:
     lowered = [getattr(artifact, attr) for _, attr, _ in _GRID_FUNCTIONS]
     include = '#include "dd.cuh"\n' if precision == "dd" else ""
     if precision != "dd" and artifact.uses_special_functions:
-        include += _SPECIAL_INCLUDE
+        include += _SPECIAL_INCLUDE + "#define INFLX_SPECIAL_FUNCTIONS 1\n"
+    elif precision == "f64" and _byte_bound(artifact):
+        include += "#define INFLX_POINT_BYTE_BOUND 1\n"
+    include += '#include "anguelova.cuh"\n'
     n_rows = {}
     body = []
     for (name, _, n_out), fn in zip(_GRID_FUNCTIONS, lowered):
         text, n_rows[name] = _emit_grid_fn(name, fn, n_out, precision)
         body.append(text)
     _check_shared(artifact, precision, n_rows)
+    body += [_emit_point_fn(artifact, kind, precision) for kind in _POINT_KINDS]
     return (
         _prelude(include=include)
         + f"#define INFLX_PRECISION {PRECISIONS[precision].id}\n"

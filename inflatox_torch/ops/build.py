@@ -148,6 +148,15 @@ def _bind_grid_scan(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,    # cudaStream_t
     ]
     lib.inflx_points_scan.restype = ctypes.c_int
+    lib.inflx_points_scan_coherent.argtypes = [
+        ctypes.c_int,       # kind
+        ctypes.c_void_p,    # params (device)
+        ctypes.c_void_p,    # points, (n, 2) f64 (device)
+        ctypes.c_void_p,    # out (device)
+        ctypes.c_int64,     # n
+        ctypes.c_void_p,    # cudaStream_t
+    ]
+    lib.inflx_points_scan_coherent.restype = ctypes.c_int
     lib.inflx_precision.argtypes = []
     lib.inflx_precision.restype = ctypes.c_int
 

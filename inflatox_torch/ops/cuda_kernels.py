@@ -27,9 +27,12 @@ once per (model, precision).
 * **B5a** and **B5b** (``inflx_points_scan``, ``"f64"`` and ``"dd"``) replace
   ``_kernel_df_ot``/``_kernel_edf_ot`` and ``_kernel_tf_ot`` with
   ``_launch_ot`` (``:1055-1160``): the four analysis kinds at the points of
-  a contiguous (n, 2) float64 tensor, one thread per point.  The TPU's
-  (hi, lo) split of the coordinates, its padding to (32, 128) blocks and
-  its f32 output pairs are dropped: the points are exact f64.
+  a contiguous (n, 2) float64 tensor, one thread per point, each running
+  the header's fused point function of its kind (the model values
+  hash-consed together, so each heavy call is made once a point, then the
+  tail).  The TPU's (hi, lo) split of the coordinates, its padding to (32,
+  128) blocks and its f32 output pairs are dropped: the points are exact
+  f64.
 
 Kinds: the four analyses (``complete_analysis`` six planes, ``consistency``,
 ``consistency_rapidturn``, ``epsilon_v``) and the raw surfaces
@@ -383,7 +386,11 @@ def scan_points_cuda(artifact, kind, args, x, precision: str = "f64") -> torch.T
     On a CUDA device it builds the kernel for the model and precision
     (first use), allocates one (n_out, n) float64 output with
     ``torch.empty`` and launches on the current stream without
-    synchronising; a launch error raises.  A non-contiguous ``x`` is made
+    synchronising; a launch error raises.  For a model that calls special
+    functions it launches the coherent kernel (``inflx_points_scan_coherent``:
+    each block sorts its tile of points by a coarse cell first, so that the
+    lanes of a warp take the same routes of kernel B8; each point's bits are
+    unchanged).  A non-contiguous ``x`` is made
     contiguous first.  On a CPU device it returns
     :func:`scan_points_torch`'s result and launches nothing."""
     args = _check_points(artifact, kind, args, x, precision)
@@ -402,10 +409,11 @@ def scan_points_cuda(artifact, kind, args, x, precision: str = "f64") -> torch.T
         p = _params(args, device)
         out = torch.empty((n_out, n), dtype=torch.float64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.inflx_points_scan(
-            KINDS[kind][0], p.data_ptr() if p.numel() else None, x.data_ptr(),
-            out.data_ptr(), n, stream,
-        )
+        launch = (KINDS[kind][0], p.data_ptr() if p.numel() else None, x.data_ptr(),
+                  out.data_ptr(), n)
+        entry = (lib.inflx_points_scan_coherent if artifact.uses_special_functions
+                 else lib.inflx_points_scan)
+        err = entry(*launch, stream)
     if err != 0:
         msg = lib.inflx_error_string(err).decode()
         raise RuntimeError(f"points-scan kernel launch failed: CUDA error {err} ({msg})")

@@ -10,8 +10,9 @@ and EGNO (double-double) it builds the grid-scan library
 ``build/inline_probe/``:
 
 * ``inlined``: the header as generated, every model function inlined;
-* ``called``: the same header with every model function (``f_V``,
-  ``f_hesse``, ``f_gsq``, ``f_grad``) ``__device__ __noinline__``;
+* ``called``: the same header with every model function (each ``f_*``:
+  the grid functions' stages and the fused point functions)
+  ``__device__ __noinline__``;
 * ``other`` (with ``--other DIR``): the headers and ``csrc/`` of another
   checkout of this repository in DIR, the headers generated there by its own
   ``inflatox_torch`` in a subprocess.

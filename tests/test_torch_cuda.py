@@ -500,3 +500,35 @@ def test_b8_inside_the_grid_point_and_solver_kernels(cuda_device):
     after = cuda_kernels.LAUNCHES_BY_KERNEL
     assert (after["B1"] - before["B1"], after["B5a"] - before["B5a"]) == (1, 1)
     assert cuda_solver.LAUNCHES == solves + 1
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096, 300_000])
+def test_points_coherence_pass_keeps_every_point(cuda_device, n):
+    """A special-function model's point scan runs the coherent kernel
+    (``inflx_points_scan_coherent``: each block sorts its tile of points by
+    a coarse cell): with NaN and ±inf coordinates, repeated points, one
+    value on one axis and a last tile cut short, every output is bit for
+    bit the plain version's, NaN masks included."""
+    x, y, a = sympy.symbols("x y a")
+    model = inflatox_torch.InflationModelBuilder.new(
+        [x, y], [[1, 0], [0, 1]], a * sympy.besselj(sympy.Rational(3, 10), x) ** 2
+        + sympy.besselk(1, x + 2) * y**2 + 2, silent=True, simplify=False,
+        assertions=False).build()
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    args = np.array([2.0])
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    pts = torch.rand(n, 2, dtype=torch.float64, device=cuda_device, generator=gen)
+    pts[:, 0] = pts[:, 0] * 2.5 + 0.5
+    if n > 8:
+        pts[1] = float("nan")
+        pts[2, 0] = float("inf")
+        pts[3, 1] = -float("inf")
+        pts[5:8] = pts[4]
+    for points in (pts, torch.stack([pts[:, 0], torch.full_like(pts[:, 1], 0.7)], 1)):
+        before = cuda_kernels.LAUNCHES_BY_KERNEL["B5a"]
+        for kind in ("complete_analysis", "epsilon_v"):
+            got = scan_points_cuda(art, kind, args, points)
+            want = scan_points_torch(art, kind, args, points)
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), kind
+        assert cuda_kernels.LAUNCHES_BY_KERNEL["B5a"] == before + 2

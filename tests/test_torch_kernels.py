@@ -32,6 +32,8 @@ from inflatox_torch.ops.anguelova import (
 from inflatox_torch.ops.build import CSRC
 from inflatox_torch.ops.cuda_kernels import KINDS, scan_cuda, scan_torch
 
+from test_torch_staged import WHOLE_FUNCTIONS
+
 PARAMS = np.array([1.0])
 EXTENT = (0.5, 2.5, 0.25, 3.0)
 MAPS_RTOL = 5e-10
@@ -82,7 +84,7 @@ def models(doc_model_artifact, trivial_artifact, tmp_path_factory):
 _HARNESS = r"""
 #include <stdint.h>
 #include "inflx_model.h"
-#include "anguelova.cuh"
+""" + WHOLE_FUNCTIONS + r"""#include "anguelova.cuh"
 
 extern "C" void eval_points(int64_t n, const double* x0, const double* x1,
                             const double* p, double* out) {

@@ -47,6 +47,8 @@ from inflatox_torch.ops.cuda_kernels import scan_torch
 from inflatox_torch.ops.dd import DD, to_f64
 from inflatox_torch.utils.devices import resolve_precision
 
+from test_torch_staged import WHOLE_FUNCTIONS
+
 mp = pytest.importorskip("mpmath")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -370,7 +372,7 @@ def test_egno_dd_ot_matches_jax_tf64(egno, kind):
 _HARNESS = r"""
 #include <stdint.h>
 #include "inflx_model.h"
-#include "anguelova.cuh"
+""" + WHOLE_FUNCTIONS + r"""#include "anguelova.cuh"
 #if INFLX_PRECISION == 2
 typedef dd coord_t;
 typedef double real_t;

@@ -12,7 +12,7 @@ its reason:
   C and in torch;
 * the staged grid evaluation (each row stage once per row, each column
   stage once per column, then the point stage at every point) against the
-  same header's functions evaluated point by point: bit for bit in every
+  same header's stages run in a row at each point: bit for bit in every
   precision (the staging only names values);
 * against the plain version on the CPU: bit for bit for hyperinflation in
   f64 and EGNO in double-double; D5 in f64 within rtol 2e-15 (its log, cos
@@ -175,10 +175,45 @@ def test_derivative_divides_without_branches_and_falls_back_whole():
 # the grid functions in row, column and point stages                           #
 # --------------------------------------------------------------------------- #
 
+#: each grid function whole at one point, for the host harnesses: its row,
+#: column and point stages in a row (the header has no whole model
+#: functions; the point kernels run the fused point functions)
+WHOLE_FUNCTIONS = r"""
+template <typename C>
+static auto f_V(const C* x, const C* p) {
+  C r[F_V_NR + 1], c[F_V_NC + 1];
+  f_V_row(x, p, r);
+  f_V_col(x, p, c);
+  return f_V_point(x, p, r, c);
+}
+template <typename C>
+static auto f_gsq(const C* x, const C* p) {
+  C r[F_GSQ_NR + 1], c[F_GSQ_NC + 1];
+  f_gsq_row(x, p, r);
+  f_gsq_col(x, p, c);
+  return f_gsq_point(x, p, r, c);
+}
+template <typename C, typename R>
+static void f_hesse(const C* x, const C* p, R* out) {
+  C r[F_HESSE_NR + 1], c[F_HESSE_NC + 1];
+  f_hesse_row(x, p, r);
+  f_hesse_col(x, p, c);
+  f_hesse_point(x, p, r, c, out);
+}
+template <typename C, typename R>
+static void f_grad(const C* x, const C* p, R* out) {
+  C r[F_GRAD_NR + 1], c[F_GRAD_NC + 1];
+  f_grad_row(x, p, r);
+  f_grad_col(x, p, c);
+  f_grad_point(x, p, r, c, out);
+}
+"""
+
 _GRID_HARNESS = r"""
 #include <stdint.h>
 #include <vector>
 #include "inflx_model.h"
+""" + WHOLE_FUNCTIONS + r"""
 
 #if INFLX_PRECISION == 2
 typedef dd T;
@@ -236,7 +271,7 @@ extern "C" void staged(int64_t n0, int64_t n1, const double* a0, const double* a
   }
 }
 
-// the three stages in a row at each point (f_V, f_hesse, f_gsq, f_grad)
+// the three stages in a row at each point (WHOLE_FUNCTIONS)
 extern "C" void pointwise(int64_t n0, int64_t n1, const double* a0, const double* a1,
                           const double* pin, double* out) {
   T p[INFLX_NP + 1];
