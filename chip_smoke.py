@@ -121,7 +121,27 @@ passes or ends the script with a nonzero exit:
 26. S1's sweep over 8 values of a at 512², f64 (B7a) and f32 (B7b), each set
     bit for bit its single scan;
 27. C9's Piecewise and sinc models at 1024² through B1, B2 and B4, each
-    against its plain version.
+    against its plain version;
+28. geometry, observables and fitting on the card (``inflatox_torch.
+    geometry``, ``observables``, ``utils.profiling``): the α-attractor's
+    background, 3000 rows of RKF45 on kernel B6, then ``horizon_exit``,
+    ``power_spectrum``, ``cobe_normalize`` and ``n_star_matching`` on the
+    card, each against the same call with ``device="cpu"`` on the same rows
+    (rtol 1e-12), and the COBE round trip (M⁴ rescaled, re-solved on B6,
+    P_ζ within 1e-4 of 2.1e-9); ``slow_roll`` over cfg1's hyperinflation
+    4096² grid (rows 0-63 against the CPU, 1e-12); ``Geometry`` over a
+    4096² grid of the hyperbolic plane (R = −2 within 1e-12, Γ and the
+    Riemann tensor against their closed forms, rows 0-63 of every surface
+    against the CPU); ``observable_jacobian`` and ``fisher_matrix`` on
+    hyperinflation, S2 and the α-attractor's pivot against the CPU;
+    ``solve_eom_fixed`` over a 2000-point grid (rows against the CPU, a
+    directional gradient against central differences, forward and
+    backward timed, kernel launches a step counted); a 64-start
+    ``fit_parameters`` of the α-attractor's (c, α) over 300 steps, its
+    history against the CPU's; a ``profiling.trace`` around one B1
+    ``complete_analysis`` at 4096² in a fresh process (``chip_smoke.py
+    --trace-worker DIR``), whose exported trace must name B1's kernel.  Its models build in phase 2, the α-attractor's B6 library with
+    the others.
 
 The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
 each distinct operation of the kind's fused point function once (the least
@@ -129,7 +149,7 @@ work any point kernel must do; B8's operations on the run's points, each
 distinct special call once), the count over the three model functions as
 before printed beside.  With ``--parent DIR`` (the parent commit unpacked,
 e.g. ``git archive``) the parent tree's grid-scan libraries for those
-paths build with the others in phase 2, and after phase 27 each point path
+paths build with the others in phase 2, and after phase 28 each point path
 runs the parent's kernel and this one through their C entries, bit for bit
 equal, in turns (parent, this, this, parent).
 
@@ -237,7 +257,16 @@ PIECEWISE_EXTENT = (-1.5, 1.5, -1.0, 1.1)
 # in the last bit now and then, and the maps' cancellations amplify it
 CPU_RTOL_SPECIAL = 1e-6
 SPECIAL_SWEEP_SETS = 8
+# phase 28: geometry, observables and fitting
+CMB_STEPS = 3000  # the α-attractor's background (tests/test_observables.py:382-410)
+RTOL_CMB = 1e-12  # phase 28's functions on the card against device="cpu"
+GEO_N = 4096  # slow roll and geometry grids (bench cfg1's 4096²)
+HYPERBOLIC_EXTENT = (0.4, 2.0, -1.0, 1.0)
+FIXED_POINTS, FIXED_T = 2000, 1.5  # solve_eom_fixed's time grid
+FIXED_COUNT_POINTS = 101  # the grid whose kernel launches are counted
+FIT_STARTS, FIT_STEPS = 64, 300
 HERE = os.path.dirname(os.path.abspath(__file__))
+PROFILE_DIR = os.path.join(HERE, "build", "chip_smoke_profile")  # under .gitignore's build/
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
 
 
@@ -987,6 +1016,32 @@ def sweep_worker(argv):
                     reduce_fn=min_and_argmin)
     return 0
 
+
+def trace_worker(argv):
+    """``--trace-worker DIR``: one hyperinflation ``complete_analysis`` at
+    4096² on kernel B1 inside ``utils.profiling.trace(DIR)`` (phase 28);
+    prints ``{"B1": launches}`` as its last line."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    import inflatox_torch
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.ops import cuda_kernels
+    from inflatox_torch.utils import profiling
+
+    model, args = inflatox_torch.models.hyperinflation()
+    al = GeneralisedAL(inflatox_torch.Compiler(model, silent=True).compile(),
+                       device=torch.device("cuda", 0), validation_seed=7)
+    al.complete_analysis(args, *DOC_EXTENT, 64, 64, progress=False, output="f64_device")
+    torch.cuda.synchronize()
+    reset_counts()
+    with profiling.trace(argv[0], label="phase28"):
+        with profiling.annotate("inflatox_complete_analysis"):
+            al.complete_analysis(args, *DOC_EXTENT, GEO_N, GEO_N, progress=False,
+                                 output="f64_device")
+        torch.cuda.synchronize()
+    print(json.dumps({"B1": cuda_kernels.LAUNCHES_BY_KERNEL["B1"]}))
+    return 0
 
 def chunk_files(ckdir):
     try:
@@ -1799,6 +1854,337 @@ def parent_turns(jobs, cases, arts, card):
         probe._OUT.clear()
 
 
+# ------------------------------------------------------------------------- #
+# phase 28: geometry, observables and fitting on the card                   #
+# ------------------------------------------------------------------------- #
+
+
+def cmb_models():
+    """Phase 28's models: the α-attractor (``models.alpha_attractor``, the
+    CMB workflow and the fit) and the hyperbolic plane g = diag(1, sinh²x)
+    (tests/test_geometry.py:47-56, Ricci scalar −2)."""
+    import sympy
+
+    import inflatox_torch
+
+    model, args = inflatox_torch.models.alpha_attractor()
+    aa = inflatox_torch.Compiler(model, silent=True).compile()
+    x, y, m = sympy.symbols("x y m", positive=True)
+    hyperbolic = inflatox_torch.InflationModelBuilder.new(
+        [x, y], [[sympy.Integer(1), 0], [0, sympy.sinh(x) ** 2]],
+        sympy.Rational(1, 2) * m**2 * (x**2 + y**2), silent=True).build()
+    return aa, args, inflatox_torch.Compiler(hyperbolic, silent=True).compile()
+
+
+def host_clock_ms(fn, repeats=3):
+    """Median host-clock ms of ``fn()`` over ``repeats`` calls after one
+    warm-up, each started and ended synchronised."""
+    import torch
+
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times[1:])[len(times[1:]) // 2]
+
+
+def close_values(got, want, rtol, floor=0.0):
+    """Max relative error of two dicts (or arrays) of numbers, after
+    requiring identical NaN masks and |got − want| <= rtol·|want| + floor
+    everywhere."""
+    import numpy as np
+
+    if not isinstance(want, dict):
+        got, want = {"": got}, {"": want}
+    check(set(got) == set(want), f"keys {sorted(got)} against {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = np.asarray(got[k].cpu() if hasattr(got[k], "cpu") else got[k], dtype=float)
+        w = np.asarray(w.cpu() if hasattr(w, "cpu") else w, dtype=float)
+        check(g.shape == w.shape, f"{k}: shape {g.shape} against {w.shape}")
+        check(np.array_equal(np.isnan(g), np.isnan(w)), f"{k}: NaN masks differ")
+        fin = np.isfinite(w)
+        check(np.array_equal(g[~fin], w[~fin], equal_nan=True), f"{k}: ±inf differ")
+        diff = np.abs(g[fin] - w[fin])
+        check(bool((diff <= rtol * np.abs(w[fin]) + floor).all()),
+              f"{k}: beyond rtol {rtol} (floor {floor:.3e}): max diff {diff.max():.3e}")
+        nz = np.abs(w[fin]) > 0
+        if nz.any():
+            worst = max(worst, float((diff[nz] / np.abs(w[fin][nz])).max()))
+    return worst
+
+
+def slot_of(art, name):
+    import sympy
+
+    slot = art.lookup_symbol(sympy.Symbol(name))
+    return int(slot[slot.index("[") + 1:-1])
+
+
+def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
+    """Phase 28: geometry, observables and fitting on the card (see the
+    module docstring); returns {"B6": launches, "B1": launches} of its
+    paths."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from inflatox_torch import background
+    from inflatox_torch import observables as ob
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.grid import axis_coords
+
+    launches = {}
+    f0 = [0.99, 0.5]  # tests/test_observables.py:382-410
+
+    # background (kernel B6) and the CMB pivot, each function on the card
+    # held against device="cpu" on the same rows
+    cuda_solver.LAUNCHES = 0
+    t = time.perf_counter()
+    rows, times = background.solve_eom(aa, aa_args, CMB_STEPS, f0, [0.0, 0.0], max_err=1e-9,
+                                       solver="rkf", return_time=True, device=device)
+    solve_s = time.perf_counter() - t
+    check(cuda_solver.LAUNCHES == 1, f"α-attractor solve: {cuda_solver.LAUNCHES} B6 launches")
+    check(bool(np.isfinite(rows).all()) and bool((np.diff(times) > 0).all()),
+          "α-attractor solve: non-finite rows or times not increasing")
+    print(f"α-attractor solve_eom(solver='rkf', max_err=1e-9) {CMB_STEPS} rows on kernel B6: "
+          f"{solve_s:.3f} s host clock (first call) on {card}; t_end {times[-1]:.6e}")
+    calls = {
+        "horizon_exit": lambda dev: ob.horizon_exit(aa, rows, times, aa_args, device=dev),
+        "power_spectrum": lambda dev: ob.power_spectrum(aa, rows, times, aa_args, device=dev),
+        "cobe_normalize": lambda dev: ob.cobe_normalize(aa, rows, times, aa_args, device=dev),
+        "n_star_matching": lambda dev: ob.n_star_matching(aa, aa_args, rows, times, A_s=2.1e-9,
+                                                          device=dev),
+    }
+    outs = {}
+    for name, call in calls.items():
+        outs[name] = call(device)
+        rel = close_values(outs[name], call("cpu"), RTOL_CMB)
+        print(f"{name} on the card vs device='cpu' on the same rows: max_rel={rel:.3e} "
+              f"(rtol {RTOL_CMB}); {host_clock_ms(lambda: call(device)):.3f} ms host clock, median "
+              f"of 3, on {card}")
+    pivot = outs["horizon_exit"]
+    print(f"α-attractor pivot 55 e-folds before the end: x = {pivot['x'].tolist()}, "
+          f"N_end {pivot['N_end']:.6f}, n_s {pivot['n_s']:.8f}, r {pivot['r']:.6e}; "
+          f"N_* (A_s 2.1e-9, instant reheating) {outs['n_star_matching']['N_star']:.6f}")
+    args2 = aa_args.copy()
+    args2[slot_of(aa, "M4")] *= outs["cobe_normalize"]["scale"]
+    rows2, times2 = background.solve_eom(aa, args2, CMB_STEPS, f0, [0.0, 0.0], max_err=1e-9,
+                                         solver="rkf", return_time=True, device=device)
+    again = ob.cobe_normalize(aa, rows2, times2, args2, device=device)
+    check(abs(again["P_zeta"] / 2.1e-9 - 1.0) <= 1e-4,
+          f"COBE round trip: P_zeta {again['P_zeta']!r} after rescaling M4")
+    launches["B6"] = cuda_solver.LAUNCHES
+    check(launches["B6"] == 2, f"phase 28's solves: {launches['B6']} B6 launches")
+    print(f"COBE round trip: scale {outs['cobe_normalize']['scale']:.10e}, re-solved on B6: "
+          f"P_zeta {again['P_zeta']:.10e} (within {abs(again['P_zeta'] / 2.1e-9 - 1):.2e} of "
+          f"2.1e-9), scale {again['scale']:.10f}; B6 launches in phase 28: {launches['B6']}")
+
+    n = GEO_N
+    # a profiling.trace around one B1 complete_analysis at 4096², in a fresh
+    # process (``--trace-worker``): in this one, after phases 1-27, the
+    # profiler's CUDA activity came back empty (PERF.md §7)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    worker = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-worker",
+                             PROFILE_DIR], capture_output=True, text=True, timeout=600)
+    check(worker.returncode == 0, f"trace worker: exit {worker.returncode}: "
+          f"{worker.stderr.strip()[-500:]}")
+    launches["B1"] = json.loads(worker.stdout.strip().splitlines()[-1])["B1"]
+    check(launches["B1"] == 1, f"profiled complete_analysis: {launches['B1']} B1 launches")
+    files = glob.glob(os.path.join(PROFILE_DIR, "phase28*.pt.trace.json"))
+    check(len(files) == 1, f"profiling.trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    b1 = [e for e in events if "grid_scan_kernel" in str(e.get("name", ""))
+          and e.get("cat") == "kernel"]
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    check(len(b1) == 1, f"the trace names B1's kernel {len(b1)} times (its events by "
+          f"category: {cats})")
+    check(any(e.get("name") == "inflatox_complete_analysis" for e in events),
+          "the trace lacks the annotated region")
+    print(f"profiling.trace: {os.path.relpath(files[0], HERE)} "
+          f"({os.path.getsize(files[0])} bytes, {len(events)} events) names B1's kernel "
+          f"{b1[0]['name'][:80]!r}: {b1[0].get('dur')} us on {card}")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+
+    # slow roll over cfg1's 4096² hyperinflation grid
+    x0 = axis_coords(DOC_EXTENT[0], DOC_EXTENT[1], n, device).reshape(n, 1)
+    x1 = axis_coords(DOC_EXTENT[2], DOC_EXTENT[3], n, device).reshape(1, n)
+    sr = ob.slow_roll(art, device=device)
+    maps = sr([x0, x1], args)
+    check(all(v.shape == (n, n) and v.device.type == "cuda" for v in maps.values()),
+          "slow_roll: maps of the wrong shape or device")
+    cpu = ob.slow_roll(art, device="cpu")([x0[:64].cpu(), x1.cpu()], args)
+    rels = {k: compare(maps[k][:64].cpu(), cpu[k], RTOL_CMB)[0] for k in maps}
+    sr_ms = time_ms(lambda: sr([x0, x1], args), 5, 1)
+    print(f"slow_roll over hyperinflation {n}² (bench cfg1's grid) on {card}: "
+          f"{sr_ms:.3f} ms (CUDA events, 5 calls); finite share of ε_V "
+          f"{torch.isfinite(maps['epsilon_v']).double().mean().item():.6f}; rows 0-63 vs "
+          "device='cpu': " + ", ".join(f"{k} max_rel={v:.3e}" for k, v in rels.items()))
+    del maps
+
+    # geometry over a 4096² grid of the hyperbolic plane
+    gx = axis_coords(HYPERBOLIC_EXTENT[0], HYPERBOLIC_EXTENT[1], n, device).reshape(n, 1)
+    gy = axis_coords(HYPERBOLIC_EXTENT[2], HYPERBOLIC_EXTENT[3], n, device).reshape(1, n)
+    gp = torch.tensor([1.3], dtype=torch.float64, device=device)
+    geo = hyperbolic.geometry
+    ric = geo.ricci_scalar([gx, gy], gp)
+    check(ric.shape == (n, n) and bool(((ric + 2.0).abs() <= 2e-12).all()),
+          "hyperbolic plane: Ricci scalar not −2 within 1e-12")
+    gam = geo.christoffels([gx, gy], gp)
+    check(gam.shape == (2, 2, 2, n, n), f"christoffels of shape {tuple(gam.shape)}")
+    sh, ch = torch.sinh(gx[:, 0]), torch.cosh(gx[:, 0])
+    rel_g = max(compare(gam[1, 0, 1][:, 0], ch / sh, 1e-12)[0],
+                compare(gam[0, 1, 1][:, 0], -sh * ch, 1e-12)[0])
+    del gam
+    riem = geo.riemann([gx, gy], gp)
+    g_yy = (sh * sh)
+    # constant curvature K = −1: R^x_yxy = K g_yy, R^y_xyx = K g_xx
+    rel_r = max(compare(riem[0, 1, 0, 1][:, 0], -g_yy, 1e-12)[0],
+                compare(riem[1, 0, 1, 0][:, 0], -torch.ones_like(g_yy), 1e-12)[0])
+    del riem
+    geo_ms, geo_rel = {}, {}
+    for surface in ("christoffels", "riemann", "ricci_scalar", "hesse"):
+        fn = getattr(geo, surface)
+        got = fn([gx[:64], gy], gp)
+        want = fn([gx[:64].cpu(), gy.cpu()], gp.cpu())
+        geo_rel[surface] = close_values(got, want, RTOL_CMB,
+                                        1e-13 * float(want.abs().max()))
+        geo_ms[surface] = time_ms(lambda fn=fn: fn([gx, gy], gp), 3, 1)
+        torch.cuda.empty_cache()
+    print(f"geometry over the hyperbolic plane {n}² on {card}: R = −2 everywhere; "
+          f"Γ^y_xy, Γ^x_yy against coth x, −sinh x cosh x: max_rel={rel_g:.3e}; R^x_yxy, "
+          f"R^y_xyx against the constant-curvature identity: max_rel={rel_r:.3e}; rows 0-63 vs "
+          "device='cpu': " + ", ".join(f"{k} max_rel={v:.3e}" for k, v in geo_rel.items())
+          + "; ms per call (CUDA events, 3 calls): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in geo_ms.items()))
+
+    # forecasting: Jacobians and Fisher matrices, card against CPU
+    keys = ("epsilon_v", "eta_v", "n_s", "r")
+    sigma = np.array([0.004, 0.01])
+    for name, m_art, m_args, x in (("hyperinflation", art, args, [2.0, 2.0]),
+                                   ("S2", s2, np.array(SPECIAL_ARGS), [1.3, 0.7]),
+                                   ("α-attractor", aa, aa_args, pivot["x"])):
+        jac = ob.observable_jacobian(m_art, keys, device=device)
+        j_card = jac(x, m_args)
+        check(j_card.device.type == "cuda", f"{name}: Jacobian left the card")
+        j_cpu = ob.observable_jacobian(m_art, keys, device="cpu")(x, m_args)
+        size = max(1.0, max(abs(float(v)) for v in ob.slow_roll(m_art, device="cpu")(
+            x, m_args).values()))
+        scale = torch.tensor(np.abs(m_args))
+        rel_j = close_values(j_card.cpu() * scale, j_cpu * scale, 1e-10, 1e-12 * size)
+        f_card = ob.fisher_matrix(m_art, x, m_args, sigma, device=device)
+        f_cpu = ob.fisher_matrix(m_art, x, m_args, sigma, device="cpu")
+        outer = np.outer(np.abs(m_args), np.abs(m_args))
+        floor = 1e-12 * size * max(1.0, float((j_cpu * scale).abs().max())) / sigma.min() ** 2
+        rel_f = close_values(f_card * outer, f_cpu * outer, 1e-10, floor)
+        print(f"forecast {name} at x = {np.asarray(x).tolist()}: Jacobian "
+              f"{np.round(j_card.cpu().numpy(), 10).tolist()}, card vs CPU max_rel={rel_j:.3e}; "
+              f"Fisher card vs CPU max_rel={rel_f:.3e}; jac {host_clock_ms(lambda: jac(x, m_args)):.3f} "
+              f"ms host clock on {card}")
+
+    # the fixed-step solver: rows against the CPU, a value and gradient
+    # against central differences, forward and backward timed
+    grid = np.linspace(0.0, FIXED_T, FIXED_POINTS)
+    x_init, d_init = np.array([2.0, 2.0]), np.array([0.0, 0.0])
+
+    def value(m_args, x_start, dev=device):
+        rows_f = ob.solve_eom_fixed(art, m_args, grid, x_start, d_init, device=dev)
+        return rows_f, rows_f[-1, 0] * rows_f[-1, 1] + rows_f[-1, 4]
+
+    p = torch.tensor(args, device=device, requires_grad=True)
+    xs = torch.tensor(x_init, device=device, requires_grad=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows_f, target = value(p, xs)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    t = time.perf_counter()
+    target.backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t
+    check(rows_f.shape == (FIXED_POINTS, 5) and bool(torch.isfinite(rows_f).all()),
+          "solve_eom_fixed: rows of the wrong shape or not finite")
+    t = time.perf_counter()
+    rows_cpu, _ = value(args, x_init, "cpu")
+    cpu_s = time.perf_counter() - t
+    rel_rows = close_values(rows_f.detach().cpu(), rows_cpu, RTOL_CMB)
+    direction = np.array([0.6, 0.48, -0.64])  # over (m, x0[0], x0[1])
+    grad = np.concatenate([p.grad.cpu().numpy(), xs.grad.cpu().numpy()])
+    h = 1e-6
+    with torch.no_grad():
+        up = float(value(args + h * direction[:1], x_init + h * direction[1:])[1])
+        down = float(value(args - h * direction[:1], x_init - h * direction[1:])[1])
+    fd = (up - down) / (2 * h)
+    check(abs(fd - grad @ direction) <= 1e-5 * abs(fd), f"solve_eom_fixed: gradient "
+          f"{grad @ direction!r} against central differences {fd!r}")
+    short = np.linspace(0.0, FIXED_T, FIXED_COUNT_POINTS)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ob.solve_eom_fixed(art, args, short, x_init, d_init, device=device)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    per_step = kernels / (FIXED_COUNT_POINTS - 1)
+    print(f"solve_eom_fixed hyperinflation over {FIXED_POINTS} points (RK4, {FIXED_POINTS - 1} "
+          f"steps) on {card}: forward {fwd_s * 1e3:.1f} ms, backward {bwd_s * 1e3:.1f} ms "
+          f"(host clock, first call, synchronised); CPU forward {cpu_s * 1e3:.1f} ms; "
+          f"{per_step:.1f} kernel launches a step ({kernels} over {FIXED_COUNT_POINTS - 1} "
+          f"steps, torch.profiler's cudaLaunchKernel count); "
+          f"rows vs device='cpu' max_rel={rel_rows:.3e}; directional gradient "
+          f"{grad @ direction:.12e} vs central differences {fd:.12e} "
+          f"(rel {abs(fd - grad @ direction) / abs(fd):.2e})")
+    del rows_f, target
+
+    # a 64-start fit of the α-attractor's (c, α) to its own (n_s, r) at the
+    # pivot, card against CPU
+    x_star = torch.tensor(pivot["x"], device=device)
+    truth = ob.slow_roll(aa, device=device)(x_star, aa_args)
+    order = [slot_of(aa, s) for s in ("M4", "c", "alpha")]
+    check(order == [0, 1, 2], f"α-attractor parameter slots {order}")
+
+    def make_loss(dev):
+        sr_dev = ob.slow_roll(aa, device=dev)
+        xs_dev, m4 = x_star.to(dev), torch.tensor(aa_args[:1], device=dev)
+        ns_t, r_t = truth["n_s"].to(dev), truth["r"].to(dev)
+
+        def loss(q):
+            got = sr_dev(xs_dev, torch.cat([m4, q]))
+            return ((got["n_s"] - ns_t) / 0.004) ** 2 + ((got["r"] - r_t) / 0.01) ** 2
+
+        return loss
+
+    rng = np.random.default_rng(28)
+    starts = np.stack([rng.uniform(0.02, 0.3, FIT_STARTS), rng.uniform(0.3, 3.0, FIT_STARTS)], 1)
+    loss_card = make_loss(device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit = ob.fit_parameters(loss_card, starts, steps=FIT_STEPS, device=device)
+    fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fit_cpu = ob.fit_parameters(make_loss("cpu"), starts, steps=FIT_STEPS, device="cpu")
+    fit_cpu_s = time.perf_counter() - t
+    check(fit.loss_history.shape == (FIT_STARTS, FIT_STEPS), "fit: history of the wrong shape")
+    rel_h = close_values(fit.loss_history, fit_cpu.loss_history, 1e-9,
+                         1e-12 * float(fit_cpu.loss_history[:, 0].max()))
+    rel_p = close_values(fit.params, fit_cpu.params, 1e-8)
+    best = int(fit.loss_history[:, -1].argmin())
+    final = float(loss_card(torch.tensor(fit.params[best], device=device)))
+    check(final < 1e-6, f"fit: best start's final loss {final!r}")
+    print(f"fit_parameters α-attractor (c, α), {FIT_STARTS} starts x {FIT_STEPS} steps (Adam, "
+          f"lr 0.05) on {card}: {fit_s:.3f} s ({fit_s / FIT_STEPS * 1e3:.3f} ms a step, host "
+          f"clock, first call), CPU {fit_cpu_s:.3f} s; history vs CPU max_rel={rel_h:.3e}, "
+          f"params max_rel={rel_p:.3e}; best start {best}: (c, α) = "
+          f"{fit.params[best].tolist()}, final loss {final:.3e}; "
+          f"{int((fit.loss_history[:, -1] < 1e-6).sum())} starts below 1e-6")
+
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1865,6 +2251,9 @@ def main() -> int:
     special = special_models()  # phases 22-27
     t_special = time.perf_counter() - t2
     t2 = time.perf_counter()
+    aa, aa_args, hyperbolic = cmb_models()  # phase 28
+    t_cmb_models = time.perf_counter() - t2
+    t2 = time.perf_counter()
 
     def timed(load, source):
         t = time.perf_counter()
@@ -1894,6 +2283,7 @@ def main() -> int:
         "B1/B5a S3": (load_grid_scan, special["S3"].cuda_source()),
         "B2 S3": (load_grid_scan, special["S3"].cuda_source("f32")),
         "B6 S2": (load_solver, special["S2"].cuda_solver_source()),
+        "B6 α-attractor": (load_solver, aa.cuda_solver_source()),
         "B6 S2, instrumented": (lambda source: chain.load_parts(source, "smoke_s2"),
                                 special["S2"].cuda_solver_source()),
         **{f"{b} {name}": (load_grid_scan, special[name].cuda_source(precision))
@@ -2579,6 +2969,14 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     point_cases += [(name, name.split()[1].lower(), np.array(SPECIAL_ARGS), pts, bnd, old)
                     for name, (pts, bnd, old) in special_points.items()]
+    # 28. geometry, observables and fitting on the card
+    t_phase28 = time.perf_counter()
+    print(f"phase 28 models (α-attractor, hyperbolic plane) built in {t_cmb_models:.2f} s "
+          f"(host, phase 2; the card: {card})")
+    cmb_launches = cmb_phase(art, args, al, aa, aa_args, hyperbolic, special["S2"], device, card)
+    print(f"phase 28 on {card}: {time.perf_counter() - t_phase28:.1f} s; launches on its paths: "
+          f"B6 {cmb_launches['B6']}, B1 {cmb_launches['B1']}; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     if parent_jobs:
         parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
             k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)
@@ -2619,6 +3017,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sweep-worker"]:
         sys.exit(sweep_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--trace-worker"]:
+        sys.exit(trace_worker(sys.argv[2:]))
     try:
         code = main()
     except SmokeFailure as e:

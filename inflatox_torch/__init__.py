@@ -14,9 +14,28 @@ the reference).  The public surface is the same:
 >>> ot = al.complete_analysis_ot(args, rows[0, :, :2])
 >>> sweep = inflatox.parallel.parameter_sweep(al, args_batch, extent, (512, 512))
 
-Every tensor is float64 and every device is explicit: ``GeneralisedAL``
-and the solvers in ``background`` take ``device=`` and never move work to
-another device on their own.  This
+The CMB-prediction workflow (background on kernel B6, then the end of
+inflation, the pivot, n_s, r and P_ζ, COBE normalisation, a Fisher forecast
+and a gradient fit):
+
+>>> from inflatox.observables import (cobe_normalize, fisher_matrix,
+...     fit_parameters, horizon_exit, n_star_matching, power_spectrum, slow_roll)
+>>> rows, times = inflatox.background.solve_eom(
+...     artifact, args, 3000, fields0, derivs0, max_err=1e-9, solver="rkf",
+...     return_time=True)
+>>> pivot = horizon_exit(artifact, rows, times, args, N_before_end=55.0)
+>>> spectrum = power_spectrum(artifact, rows, times, args)
+>>> scale = cobe_normalize(artifact, rows, times, args)["scale"]
+>>> n_star = n_star_matching(artifact, args, rows, times, A_s=2.1e-9)["N_star"]
+>>> F = fisher_matrix(artifact, pivot["x"], args, sigma=[0.004, 0.01])
+>>> sr = slow_roll(artifact)
+>>> fit = fit_parameters(lambda a: (sr(pivot["x"], a)["n_s"] - 0.965) ** 2, args)
+>>> ricci = artifact.geometry.ricci_scalar(x_grid, args_tensor)
+
+Every tensor is float64 and every device is explicit: ``GeneralisedAL``,
+the solvers in ``background`` and the functions of ``observables`` take
+``device=`` (``"cuda"`` by default) and never move work to another device
+on their own; ``artifact.geometry`` computes on the device of its inputs.  This
 package imports neither ``jax`` nor ``inflatox_tpu``.
 """
 
@@ -35,7 +54,9 @@ from .version import __version__
 
 from . import background
 from . import consistency_conditions
+from . import geometry
 from . import models
+from . import observables
 from . import parallel
 
 __all__ = [
@@ -46,8 +67,10 @@ __all__ = [
     "InflationModelBuilder",
     "background",
     "consistency_conditions",
+    "geometry",
     "log_info",
     "log_warn",
     "models",
+    "observables",
     "parallel",
 ]

@@ -45,7 +45,7 @@ def _check_solver(solver, mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (sharding a batch over devices) is not ported yet: "
-            "ROADMAP A10 brings it with torch.distributed"
+            "ROADMAP §A.7 brings it with torch.distributed"
         )
     if solver == "rkf_pallas":
         raise ValueError(
@@ -174,7 +174,7 @@ def solve_eom_batch(
     B6; ``"torch"`` — the plain version on any device.  ``solver``:
     ``"rk4"`` or ``"rkf"`` (``"rkf_pallas"``, the JAX package's TPU kernel,
     raises: ``"rkf"`` runs kernel B6).  ``mesh=`` raises
-    ``NotImplementedError`` (ROADMAP A10)."""
+    ``NotImplementedError`` (ROADMAP §A.7)."""
     pars, fields_init, derivatives_init = _check_batch(
         artifact, pars, fields_init, derivatives_init
     )

@@ -247,6 +247,18 @@ class CompiledModel:
     def model(self) -> InflationModel:
         return self._model
 
+    @property
+    def geometry(self):
+        """Field-space geometry surfaces (Christoffels, Riemann, Ricci
+        scalar, coordinate covariant Hesse), lowered lazily on first use —
+        see :class:`inflatox_torch.geometry.Geometry`."""
+        geo = getattr(self, "_geometry", None)
+        if geo is None:
+            from .geometry import Geometry  # noqa: PLC0415
+
+            geo = self._geometry = Geometry(self)
+        return geo
+
     def save(self, path: str) -> None:
         """Write a JSON bundle that :meth:`load` (of this package or of
         ``inflatox_tpu``) can re-lower without re-running the symbolic

@@ -1,7 +1,7 @@
 """Parameter sweeps on one device (:func:`parameter_sweep`, on the batched
 grid-scan kernels B7a, B7b and B7d).  Sharding over several devices
 (``sharded_scan``, ``sharded_scan_ot``, ``make_mesh``, ``distributed``) is
-ROADMAP A10."""
+ROADMAP §A.7."""
 
 from .sweep import parameter_sweep
 

@@ -232,7 +232,7 @@ def parameter_sweep(
     extent: (x0_start, x0_stop, x1_start, x1_stop).
     shape: (N0, N1) grid resolution per parameter set.
     mesh, sweep_axis: sharding over devices is not ported yet; a ``mesh``
-        raises ``NotImplementedError`` (ROADMAP A10).
+        raises ``NotImplementedError`` (ROADMAP §A.7).
     chunk_size: sets per launch (bounds device memory for large S and
         enables checkpointing).  Default: the whole batch in one launch.
     checkpoint_dir: if set, each chunk's result is written to
@@ -265,7 +265,7 @@ def parameter_sweep(
         raise ValueError(f"unknown scan kind {kind!r}; expected one of {_SWEEP_KINDS}")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (sharding a sweep over devices) is not ported yet: ROADMAP A10 "
+            "mesh= (sharding a sweep over devices) is not ported yet: ROADMAP §A.7 "
             "brings it with torch.distributed"
         )
     precision = resolve_precision(precision, dtype)

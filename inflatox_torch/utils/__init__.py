@@ -8,6 +8,7 @@ from .errors import (
     SimplificationTimeOut,
 )
 from .logging import log_info, log_warn, log_panic, Progress
+from . import profiling
 
 __all__ = [
     "InflatoxError",
@@ -21,4 +22,5 @@ __all__ = [
     "log_warn",
     "log_panic",
     "Progress",
+    "profiling",
 ]

@@ -532,3 +532,114 @@ def test_points_coherence_pass_keeps_every_point(cuda_device, n):
             same = (got == want) | (torch.isnan(got) & torch.isnan(want))
             assert bool(same.all()), kind
         assert cuda_kernels.LAUNCHES_BY_KERNEL["B5a"] == before + 2
+
+
+# ------------------------------------------------------------------------- #
+# geometry and observables with device="cuda" against device="cpu"           #
+# ------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def hyperbolic(cuda_device):
+    x, y, m = sympy.symbols("x y m", positive=True)
+    model = inflatox_torch.InflationModelBuilder.new(
+        [x, y], [[sympy.Integer(1), 0], [0, sympy.sinh(x) ** 2]],
+        sympy.Rational(1, 2) * m**2 * (x**2 + y**2), silent=True).build()
+    return inflatox_torch.Compiler(model, silent=True).compile(), np.array([1.3])
+
+
+@pytest.fixture(scope="module")
+def quadratic(cuda_device):
+    f1, f2, m1, m2 = sympy.symbols("phi_1 phi_2 m_1 m_2")
+    model = inflatox_torch.InflationModelBuilder.new(
+        [f1, f2], [[1, 0], [0, 1]], (m1 * f1) ** 2 + (m2 * f2) ** 2, "trivial",
+        silent=True).build()
+    return inflatox_torch.Compiler(model, silent=True).compile()
+
+
+def _close(got, want, rtol=1e-12):
+    """Within rtol, with a floor of 1e-13 of the largest value (components
+    that cancel to 0 are rounding noise on both devices)."""
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    assert got.shape == want.shape
+    floor = 1e-13 * np.nanmax(np.abs(want)) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=floor, equal_nan=True)
+
+
+@pytest.mark.parametrize("surface", ["christoffels", "riemann", "ricci_scalar", "hesse"])
+def test_geometry_on_the_card_matches_the_cpu(hyperbolic, doc, cuda_device, surface):
+    rng = np.random.default_rng(2)
+    for (art, args), lo, hi in ((hyperbolic, (0.3, -1.0), (2.0, 1.0)),
+                                (doc, (0.5, 0.25), (2.5, 3.0))):
+        grid = [rng.uniform(lo[i], hi[i], (64, 48)) for i in range(2)]
+        fn = getattr(art.geometry, surface)
+        got = fn([torch.tensor(g, device=cuda_device) for g in grid],
+                 torch.tensor(args, device=cuda_device))
+        want = fn([torch.tensor(g) for g in grid], torch.tensor(args))
+        assert got.device.type == "cuda" and got.dtype == torch.float64
+        assert got.shape[-2:] == (64, 48)
+        _close(got.cpu().numpy(), want.numpy())
+
+
+def test_observables_on_the_card_match_the_cpu(doc, quadratic, cuda_device):
+    from inflatox_torch import observables as ob
+
+    art, args = doc
+    rng = np.random.default_rng(4)
+    grid = [rng.uniform(0.5, 2.5, (96, 64)), rng.uniform(0.25, 3.0, (96, 64))]
+    got = ob.slow_roll(art, device="cuda")(grid, args)
+    want = ob.slow_roll(art, device="cpu")(grid, args)
+    for k in want:
+        assert got[k].device.type == "cuda"
+        _close(got[k].cpu().numpy(), want[k].numpy())
+    x, m = np.array([1.2, -0.8]), np.array([1.0, 0.7])
+    jac = ob.observable_jacobian(quadratic, ("epsilon_v", "eta_v", "n_s", "r"), device="cuda")
+    j_cuda = jac(x, m)
+    assert j_cuda.device.type == "cuda"
+    _close(j_cuda.cpu().numpy(), ob.observable_jacobian(
+        quadratic, ("epsilon_v", "eta_v", "n_s", "r"), device="cpu")(x, m).numpy(), 1e-10)
+    _close(ob.fisher_matrix(quadratic, x, m, [0.004, 0.01], device="cuda"),
+           ob.fisher_matrix(quadratic, x, m, [0.004, 0.01], device="cpu"), 1e-10)
+
+    # the trajectory level on kernel B6's rows, read by both devices
+    solves = cuda_solver.LAUNCHES
+    rows, times = background.solve_eom(quadratic, np.ones(2), 3000, [16.0, 0.0], [0.0, 0.0],
+                                       max_err=1e-9, solver="rkf", return_time=True,
+                                       device=cuda_device)
+    assert cuda_solver.LAUNCHES == solves + 1
+    for call in (
+        lambda dev: ob.along_trajectory(quadratic, rows, np.ones(2), device=dev),
+        lambda dev: ob.horizon_exit(quadratic, rows, times, np.ones(2), device=dev),
+        lambda dev: ob.power_spectrum(quadratic, rows, times, np.ones(2), device=dev),
+        lambda dev: ob.cobe_normalize(quadratic, rows, times, np.ones(2), device=dev),
+        lambda dev: ob.n_star_matching(quadratic, np.ones(2), rows, times, A_s=2.1e-9,
+                                       device=dev),
+    ):
+        on_card, on_cpu = call("cuda"), call("cpu")
+        assert set(on_card) == set(on_cpu)
+        for k in on_cpu:
+            _close(on_card[k], on_cpu[k])
+
+    # the fixed-step solver and its gradient, and a multi-start fit
+    grid_t = np.linspace(0.0, 1.5, 301)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = torch.tensor(m, device=dev, requires_grad=True)
+        fixed = ob.solve_eom_fixed(quadratic, p, grid_t, [1.0, 0.5], [0.0, 0.0], device=dev)
+        assert fixed.device.type == dev
+        fixed[-1, 0].backward()
+        out[dev] = (fixed.detach().cpu().numpy(), p.grad.cpu().numpy())
+    _close(out["cuda"][0], out["cpu"][0])
+    _close(out["cuda"][1], out["cpu"][1], 1e-10)
+    starts = rng.uniform(0.5, 1.5, (4, 2))
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        sr = ob.slow_roll(quadratic, device=dev)
+
+        def loss(a, sr=sr):
+            got = sr(x, a)
+            return (got["n_s"] - 0.95) ** 2 + (got["r"] - 0.1) ** 2
+
+        fits[dev] = ob.fit_parameters(loss, starts, steps=30, device=dev)
+    np.testing.assert_allclose(fits["cuda"].loss_history, fits["cpu"].loss_history, rtol=1e-9)
+    np.testing.assert_allclose(fits["cuda"].params, fits["cpu"].params, rtol=1e-10)

@@ -19,6 +19,8 @@ EXPORTS = {
     "models",
     "background",
     "consistency_conditions",
+    "geometry",
+    "observables",
     "parallel",
     "log_info",
     "log_warn",
@@ -29,9 +31,11 @@ MODULES = [
     "inflatox_torch.background",
     "inflatox_torch.compiler",
     "inflatox_torch.consistency_conditions",
+    "inflatox_torch.geometry",
     "inflatox_torch.lowering.cuda_codegen",
     "inflatox_torch.lowering.torch_lowering",
     "inflatox_torch.models",
+    "inflatox_torch.observables",
     "inflatox_torch.ops.build",
     "inflatox_torch.ops.cuda_kernels",
     "inflatox_torch.ops.cuda_solver",
@@ -39,6 +43,7 @@ MODULES = [
     "inflatox_torch.parallel.sweep",
     "inflatox_torch.symbolic",
     "inflatox_torch.utils.devices",
+    "inflatox_torch.utils.profiling",
 ]
 
 
