@@ -141,7 +141,23 @@ passes or ends the script with a nonzero exit:
     history against the CPU's; a ``profiling.trace`` around one B1
     ``complete_analysis`` at 4096² in a fresh process (``chip_smoke.py
     --trace-worker DIR``), whose exported trace must name B1's kernel.  Its models build in phase 2, the α-attractor's B6 library with
-    the others.
+    the others;
+29. perturbation spectra on the card (``inflatox_torch.perturbations``) at
+    the JAX package's bench sizes: cfg6, ``delta_n_sweep`` on bench's
+    quadratic model over 16 mass sets × 8 pivots (two B6 launches, 16 then
+    512 trajectories × 2000 rows; median of 3 on the host clock, the
+    perturbed launch alone, the copy of its rows), against the plain solver
+    on the CPU (first-order outputs rtol 1e-6); cfg6b and cfg6c,
+    ``mode_sweep`` and ``transport_sweep`` over 8 sets × 8 pivots at 4000 +
+    1500 RK4 steps, against ``device="cpu"`` on the same base rows (rtol
+    1e-10); each integrator's kernel launches and ms a step; the curved
+    two-field model of tests/test_perturbations.py (3000 RKF45 rows on B6):
+    ``delta_n_spectrum(order=2)``, ``mode_spectrum`` and
+    ``transport_spectrum`` at 12 pivots and ``squeezed_fnl``, each against
+    ``device="cpu"`` (``N_hess``, ``f_NL``, ``f_NL_sq`` rtol 1e-4), mode
+    against δN within 8 % and Maldacena's relation within 5 %.  Its two B6
+    libraries build in phase 2; the B6 row of the kernel table counts its
+    launches.
 
 The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
 each distinct operation of the kind's fused point function once (the least
@@ -265,6 +281,22 @@ HYPERBOLIC_EXTENT = (0.4, 2.0, -1.0, 1.0)
 FIXED_POINTS, FIXED_T = 2000, 1.5  # solve_eom_fixed's time grid
 FIXED_COUNT_POINTS = 101  # the grid whose kernel launches are counted
 FIT_STARTS, FIT_STEPS = 64, 300
+# phase 29: perturbation spectra, at the JAX package's bench sizes
+SPECTRA_KW = {"pivots": 8, "N_margin_start": 5.0, "N_margin_end": 8.0,
+              "steps": 2000}  # bench cfg6/6b/6c (bench.py:1105-1182)
+DN_SETS, MODE_SETS = 16, 8  # cfg6's 16 mass sets; cfg6b's and cfg6c's 8
+CURVED_STEPS = 3000  # tests/test_perturbations.py:34-48's curved background
+# δN on kernel B6 against the plain solver on the CPU: solve differences of
+# ~1e-11 in N give ~1e-7 on N_grad at h = 1e-4 (tests/test_perturbations.py:
+# 204-226's budget); second differences at h2 = 2e-3 amplify by 1/h2²
+RTOL_DN_FIRST = 1e-6
+RTOL_DN_SECOND = 1e-4
+# the mode and transport routes, card against device="cpu" on the same base
+# rows (torch ops alone); cos Δ and T_RS, zero in exact arithmetic on the φ²
+# axis, also within 1e-12 absolute
+RTOL_SPECTRA = 1e-10
+FLOOR_SPECTRA = 1e-12
+STEPS_COUNTED, STEPS_TIMED = 100, 1000  # RK4 steps of each integrator
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(HERE, "build", "chip_smoke_profile")  # under .gitignore's build/
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
@@ -2185,6 +2217,337 @@ def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
     return launches
 
 
+# ------------------------------------------------------------------------- #
+# phase 29: perturbation spectra on the card                                #
+# ------------------------------------------------------------------------- #
+
+
+def spectra_models():
+    """Phase 29's models: bench's quadratic (bench.py:308-320: ½(m₁φ₁)² +
+    ½(m₂φ₂)² on a flat metric) and the curved two-field model of
+    tests/test_perturbations.py:34-48 (metric diag(1, e^{2bφ₁}), m₁ = 1,
+    m₂ = 0.8, b = 0.25)."""
+    import sympy
+
+    import inflatox_torch
+
+    p1, p2, m1, m2, b = sympy.symbols("p1 p2 m1 m2 b", real=True)
+    V = sympy.Rational(1, 2) * (m1 * p1) ** 2 + sympy.Rational(1, 2) * (m2 * p2) ** 2
+    built = []
+    for metric in ([[1, 0], [0, 1]], [[sympy.Integer(1), 0], [0, sympy.exp(2 * b * p1)]]):
+        model = inflatox_torch.InflationModelBuilder.new([p1, p2], metric, V, silent=True).build()
+        built.append(inflatox_torch.Compiler(model, silent=True).compile())
+    quad, curved = built
+    c_args = inflatox_torch.models._args_by_symbol(curved.model,
+                                                   {"m1": 1.0, "m2": 0.8, "b": 0.25})
+    return quad, curved, c_args
+
+
+class SolveTap:
+    """Wraps ``background.solve_eom_batch`` inside a ``with`` block: records
+    each call's arguments and results, or, given recorded calls, checks that
+    the starts are the recorded ones and returns the recorded results (so
+    that the CPU side of a comparison reads the card's base rows)."""
+
+    def __init__(self, replay=None):
+        self.calls = [] if replay is None else list(replay)
+        self.replay = replay is not None
+
+    def __enter__(self):
+        import numpy as np
+
+        from inflatox_torch import background
+
+        self._real = background.solve_eom_batch
+
+        def call(artifact, pars, steps, f0, chi0, **kw):
+            if self.replay:
+                args, out = self.calls.pop(0)
+                check(np.array_equal(args[3], f0) and np.array_equal(args[1], pars),
+                      "replayed solve: other starts than the recorded ones")
+                return out
+            out = self._real(artifact, pars, steps, f0, chi0, **kw)
+            self.calls.append(((artifact, pars, steps, f0, chi0), out))
+            return out
+
+        background.solve_eom_batch = call
+        return self
+
+    def __exit__(self, *exc):
+        from inflatox_torch import background
+
+        background.solve_eom_batch = self._real
+        check(exc[0] is not None or not (self.replay and self.calls),
+              "replayed solves left over")
+
+
+def step_cost(run):
+    """(kernel launches a step, ms a step) of an RK4 loop ``run(n)`` over its
+    first n steps: launches from torch.profiler's count of launch calls over
+    STEPS_COUNTED steps, time on the host clock over STEPS_TIMED steps,
+    synchronised."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(STEPS_COUNTED)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages() if "LaunchKernel" in e.key}
+    t = time.perf_counter()
+    run(STEPS_TIMED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / STEPS_TIMED
+    return sum(counts.values()) / STEPS_COUNTED, ms, counts
+
+
+def spectra_phase(quad, curved, c_args, device, card):
+    """Phase 29: perturbation spectra on the card (see the module docstring);
+    returns (B6 launches on its paths, a summary of its numbers)."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch import background
+    from inflatox_torch import perturbations as pert
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.cuda_solver import solve_cuda
+
+    launches = {}
+    summary = {"card": card}
+    f0, d0 = [12.0, 0.0], [0.0, 0.0]
+
+    def counted(label, expected, fn):
+        cuda_solver.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        check(cuda_solver.LAUNCHES == expected,
+              f"{label}: {cuda_solver.LAUNCHES} B6 launches, expected {expected}")
+        launches[label] = expected
+        return out, seconds
+
+    def held(got, want, keys, rtol, floor_keys=(), scaled=("N_grad", "N_hess")):
+        """Max relative error over ``keys``; the δN derivatives, whose
+        spectator components vanish by symmetry, within rtol of their
+        largest component."""
+        rel = 0.0
+        for k in keys:
+            floor = FLOOR_SPECTRA if k in floor_keys else 0.0
+            if k in scaled:
+                floor = rtol * float(np.nanmax(np.abs(want[k])))
+            rel = max(rel, close_values(got[k], want[k], rtol, floor))
+        return rel
+
+    first = ("ln_k", "N", "P_zeta", "P_tensor", "n_s", "r", "H", "N_grad")
+
+    # cfg6: delta_n_sweep, 16 mass sets, two B6 launches (16 base and 512
+    # perturbed trajectories × 2000 rows), against the plain solver on the CPU
+    pars6 = np.stack([np.linspace(0.9, 1.1, DN_SETS), np.ones(DN_SETS)], 1)
+
+    def dn_sweep(dev=device):
+        return pert.delta_n_sweep(quad, pars6, f0, d0, max_err=1e-8, device=dev, **SPECTRA_KW)
+
+    with SolveTap() as tap:
+        sw, first_s = counted("cfg6 delta_n_sweep", 2, dn_sweep)
+    check(bool(sw["ok"].all()) and sw["P_zeta"].shape == (DN_SETS, SPECTRA_KW["pivots"]),
+          f"cfg6: ok {sw['ok'].tolist()}, P_zeta {sw['P_zeta'].shape}")
+    t = time.perf_counter()
+    sw_cpu = dn_sweep("cpu")
+    cpu_s = time.perf_counter() - t
+    rel6 = held(sw, sw_cpu, first, RTOL_DN_FIRST)
+    cfg6_ms = host_clock_ms(dn_sweep, 3)
+    # its parts: the perturbed launch alone (CUDA events), the copy of its
+    # rows to the host, the rest host numpy
+    (_, pars_all, steps, f_all, c_all), _ = tap.calls[1]
+    pt, ft, ct = (torch.tensor(np.ascontiguousarray(a), device=device)
+                  for a in (pars_all, f_all, c_all))
+    b6_ms = time_ms(lambda: solve_cuda(quad, pt, steps, ft, ct, 1e-8, "rkf"), 10, 2)
+    rows_t, times_t = solve_cuda(quad, pt, steps, ft, ct, 1e-8, "rkf")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows_np, times_np = background._host(rows_t, times_t, True)
+    copy_ms = (time.perf_counter() - t) * 1e3
+    n_rows = rows_np.nbytes + times_np.nbytes
+    # the host part after the copy: Ḣ by the inner product on the card
+    # (the rows go back to it) with the e-fold axis, then the surface
+    # read-out in numpy
+    t = time.perf_counter()
+    aux = pert._batch_hdot_efolds(quad, pars_all, rows_np, times_np, device)
+    hdot_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pert._dn_surface(quad, pars_all, rows_np, times_np, rows_np[:, 0, -1] * 0.5, steps, device,
+                     strict=False, aux=aux)
+    surface_ms = (time.perf_counter() - t) * 1e3
+    print(f"cfg6 delta_n_sweep {DN_SETS} sets x {SPECTRA_KW['pivots']} pivots on {card}: "
+          f"{cfg6_ms:.1f} ms host clock, median of 3 ({DN_SETS / cfg6_ms * 3.6e6:.0f} sets an "
+          f"hour; first call {first_s * 1e3:.1f} ms); B6 launches 2 ({pars6.shape[0]} base, "
+          f"{f_all.shape[0]} perturbed trajectories x {steps} rows); the perturbed launch alone "
+          f"{b6_ms:.3f} ms (CUDA events), its rows to the host {copy_ms:.1f} ms ({n_rows} "
+          f"bytes), then Ḣ and the e-fold axis {hdot_ms:.1f} ms (the rows back to the card "
+          f"for the inner product) and the surface read-out {surface_ms:.1f} ms (numpy), "
+          f"host clock; card vs device='cpu' (the plain solver): max_rel={rel6:.3e} (rtol "
+          f"{RTOL_DN_FIRST}); CPU {cpu_s:.1f} s")
+    summary["cfg6"] = {"ms": cfg6_ms, "first_ms": first_s * 1e3, "b6_perturbed_ms": b6_ms,
+                       "copy_ms": copy_ms, "copy_bytes": n_rows, "hdot_efolds_ms": hdot_ms,
+                       "surface_ms": surface_ms, "cpu_s": cpu_s,
+                       "max_rel_cpu": rel6, "trajectories": int(f_all.shape[0])}
+
+    # cfg6b and cfg6c: mode_sweep and transport_sweep, 8 sets x 8 pivots at
+    # the default 4000 + 1500 steps; the CPU side reads the card's base rows
+    pars6b = np.stack([np.linspace(0.9, 1.1, MODE_SETS), np.ones(MODE_SETS)], 1)
+    mode_keys = ("ln_k", "N", "P_zeta", "P_tensor", "P_iso", "cos_delta", "n_s", "n_t",
+                 "alpha_s", "r", "H")
+    for name, fn, keys in (
+            ("cfg6b mode_sweep", pert.mode_sweep, mode_keys),
+            ("cfg6c transport_sweep", pert.transport_sweep,
+             mode_keys + ("T_RS", "T_SS", "P_zeta_star", "P_iso_star"))):
+        fn(quad, pars6b, f0, d0, device=device, **dict(SPECTRA_KW, pivots=3))  # untimed
+        with SolveTap() as tap:
+            out, seconds = counted(name, 1, lambda fn=fn: fn(quad, pars6b, f0, d0,
+                                                             device=device, **SPECTRA_KW))
+        check(bool(out["ok"].all()) and bool(np.isfinite(out["P_zeta"]).all()),
+              f"{name}: ok {out['ok'].tolist()} or non-finite P_zeta")
+        t = time.perf_counter()
+        with SolveTap(replay=tap.calls):
+            cpu = fn(quad, pars6b, f0, d0, device="cpu", **SPECTRA_KW)
+        cpu_s = time.perf_counter() - t
+        rel = held(out, cpu, keys, RTOL_SPECTRA, ("cos_delta", "T_RS"))
+        print(f"{name} {MODE_SETS} sets x {SPECTRA_KW['pivots']} pivots (4000 + 1500 RK4 "
+              f"steps) on {card}: {seconds:.2f} s host clock (after an untimed call at 3 "
+              f"pivots), {MODE_SETS / seconds * 3600:.0f} sets an hour; B6 launches 1; card "
+              f"vs device='cpu' on the same base rows max_rel={rel:.3e} (rtol {RTOL_SPECTRA}); "
+              f"CPU {cpu_s:.2f} s; P_zeta set 0 {out['P_zeta'][0].tolist()}")
+        summary[name.split()[0]] = {"s": seconds, "cpu_s": cpu_s, "max_rel_cpu": rel}
+
+    # the integrators: kernel launches and ms a step over cfg6b's 64 pivots
+    _, setups, _ = pert._sweep_base_setups(
+        quad, pars6b, f0, d0, steps=SPECTRA_KW["steps"], max_err=1e-8, solver="rkf",
+        device=device, on_failure="raise", pivots=SPECTRA_KW["pivots"],
+        N_margin_start=SPECTRA_KW["N_margin_start"], N_margin_end=SPECTRA_KW["N_margin_end"],
+        N_sub=4.0, N_dense=2.0, dense_steps=4000, tail_steps=1500)
+    ms_streams = [pert._ms_streams(s) for s in setups]
+    scalar = tuple(torch.cat(p, 1) for p in zip(*[st[0] for st in ms_streams]))
+    tensor = tuple(torch.cat(p, 1) for p in zip(*[st[1] for st in ms_streams]))
+    u_n, u_m, u_t_n, u_t_m, dts = (torch.cat(p, 1) for p in
+                                   zip(*[pert._tr_streams(s) for s in setups]))
+    state0 = torch.cat([s.state0 for s in setups])
+    state0_t = torch.tensor(np.concatenate([s.state0_t for s in setups]), device=device)
+    sig0s = [pert._tr_sigma0(s) for s in setups]
+    sig0, sig0_t = torch.cat([a for a, _ in sig0s]), torch.cat([b for _, b in sig0s])
+
+    def cut(streams, n):
+        return tuple(s[:n + 1] for s in streams[:-1]) + (streams[-1][:n],)
+
+    loops = {
+        "mode scalar": lambda n: pert._ms_integrate(state0, cut(scalar, n)),
+        "mode tensor": lambda n: pert._ms_integrate_t(state0_t, cut(tensor, n)),
+        "transport scalar": lambda n: pert._tr_integrate(sig0, u_n, u_m, dts, 0, n),
+        "transport tensor": lambda n: pert._tr_integrate(sig0_t, u_t_n, u_t_m, dts, 0, n),
+    }
+    summary["steps"] = {}
+    for name, run in loops.items():
+        per_step, ms, counts = step_cost(run)
+        summary["steps"][name] = {"launches": per_step, "ms": ms}
+        print(f"RK4 step, {name}, {state0.shape[0]} pivots on {card}: {per_step:.2f} kernel "
+              f"launches a step (torch.profiler over {STEPS_COUNTED} steps: {counts}), "
+              f"{ms:.4f} ms a step (host clock over {STEPS_TIMED} steps, synchronised), "
+              f"{ms * 1e3 / max(per_step, 1):.2f} us a launch")
+    del ms_streams, scalar, tensor, u_n, u_m, u_t_n, u_t_m, setups
+
+    # the curved two-field model: its base on B6, then every route on the
+    # card against device="cpu" on the same rows
+    (rows, times), base_s = counted("curved solve_eom", 1, lambda: background.solve_eom(
+        curved, c_args, CURVED_STEPS, [10.0, 1.5], [0.0, 0.0], max_err=1e-9, solver="rkf",
+        return_time=True, device=device))
+    check(bool(np.isfinite(rows).all()), "curved base: non-finite rows")
+    routes = {
+        "delta_n_spectrum(order=2)": (
+            lambda k, dev: pert.delta_n_spectrum(
+                curved, c_args, rows, times, pivots=k, order=2, N_margin_start=5.0,
+                N_margin_end=5.0, steps=CURVED_STEPS, max_err=1e-9, device=dev), 1),
+        "mode_spectrum": (lambda k, dev: pert.mode_spectrum(curved, c_args, rows, times,
+                                                            pivots=k, device=dev), 0),
+        "transport_spectrum": (lambda k, dev: pert.transport_spectrum(
+            curved, c_args, rows, times, pivots=k, device=dev), 0),
+    }
+    outs = {}
+    for name, (fn, n_b6) in routes.items():
+        fn(3, device)  # untimed
+        outs[name], seconds = counted(f"curved {name}", n_b6, lambda fn=fn: fn(12, device))
+        t = time.perf_counter()
+        cpu = fn(12, "cpu")
+        cpu_s = time.perf_counter() - t
+        if n_b6:
+            second = ("N_hess", "f_NL")
+            rel = max(held(outs[name], cpu, first, RTOL_DN_FIRST),
+                      held(outs[name], cpu, second, RTOL_DN_SECOND))
+            tol = f"rtol {RTOL_DN_FIRST}, N_hess and f_NL {RTOL_DN_SECOND}; the plain solver"
+        else:
+            rel = held(outs[name], cpu, list(cpu), RTOL_SPECTRA, ("cos_delta", "T_RS"))
+            tol = f"rtol {RTOL_SPECTRA}, same rows"
+        summary[f"curved {name}"] = {"s": seconds, "cpu_s": cpu_s, "max_rel_cpu": rel}
+        print(f"curved {name} at 12 pivots on {card}: {seconds:.3f} s host clock (after an "
+              f"untimed call at 3 pivots); B6 launches {n_b6}; card vs device='cpu' "
+              f"max_rel={rel:.3e} ({tol}); CPU {cpu_s:.2f} s")
+    dn, ms, tr = (outs[k] for k in routes)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pert._pivot_setup(curved, c_args, rows, times, 12, 5.0, 5.0, 4.0, 2.0, 4000, 1500, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    summary["curved pivot setup s"] = setup_s
+    print(f"curved mode/transport pivot setup alone (12 pivots: grids, the streams' Γu and "
+          f"M/H² on the card, the vielbein start) on {card}: {setup_s:.3f} s host clock; the "
+          "rest of each call is its RK4 loops and the numpy read-out")
+    n_end = dn["N"][-1] + 5.0
+    settled = n_end - ms["N"] >= 8.0  # tests/test_perturbations.py places them 8 before
+    ratio = ms["P_zeta"] / dn["P_zeta"] - 1.0
+    check(bool(np.allclose(ms["N"], dn["N"], rtol=0, atol=1e-12)), "curved: pivots differ")
+    check(bool((np.abs(ratio[settled]) <= 0.08).all()),
+          f"curved: mode against δN {ratio.tolist()}")
+    print(f"curved mode_spectrum against delta_n_spectrum at the same 12 pivots on {card}: "
+          f"P_zeta ratio - 1 = {np.round(ratio, 5).tolist()} (within 8 % at the "
+          f"{int(settled.sum())} pivots 8 or more e-folds before the end, as "
+          f"tests/test_perturbations.py places them); transport/mode - 1 "
+          f"{np.abs(tr['P_zeta'] / ms['P_zeta'] - 1).max():.3e} at most; δN f_NL "
+          f"{np.round(dn['f_NL'], 6).tolist()}")
+
+    sq_kw = dict(steps=CURVED_STEPS, max_err=1e-9, N_margin_start=2.0, N_margin_end=5.0)
+
+    def squeezed(dev=device):
+        return pert.squeezed_fnl(curved, c_args, rows, times, N_long_before_end=22.0,
+                                 N_short_before_end=(14.0,), device=dev, **sq_kw)
+
+    squeezed()  # untimed
+    sq, sq_s = counted("curved squeezed_fnl", 2, squeezed)
+    t = time.perf_counter()
+    sq_cpu = squeezed("cpu")
+    sq_cpu_s = time.perf_counter() - t
+    rel_sq = max(held(sq, sq_cpu, ("N_grad_long", "P_zeta_long", "P_zeta_short", "ln_k_short"),
+                      RTOL_DN_FIRST),
+                 held(sq, sq_cpu, ("f_NL_sq", "response"), RTOL_DN_SECOND))
+    dn3, _ = counted("curved delta_n_spectrum at 15, 14, 13 e-folds", 1, lambda: (
+        pert.delta_n_spectrum(curved, c_args, rows, times, pivot_N_before_end=[15.0, 14.0, 13.0],
+                              order=2, device=device, **sq_kw)))
+    consistency = (5.0 / 12.0) * (1.0 - dn3["n_s"][1])
+    check(abs(sq["f_NL_sq"][0] / consistency - 1.0) <= 0.05,
+          f"Maldacena: f_NL_sq {sq['f_NL_sq'][0]!r} against (5/12)(1 - n_s) {consistency!r}")
+    print(f"curved squeezed_fnl (k_L 22, k_S 14 e-folds before the end) on {card}: "
+          f"{sq_s * 1e3:.1f} ms host clock (after an untimed call), B6 launches 2; "
+          f"f_NL_sq {sq['f_NL_sq'][0]:.8f} against Maldacena's (5/12)(1 - n_s) "
+          f"{consistency:.8f} ({abs(sq['f_NL_sq'][0] / consistency - 1):.2e}; within 5 %); "
+          f"δN local f_NL {dn3['f_NL'][1]:.6f}; card vs device='cpu' max_rel={rel_sq:.3e}; "
+          f"CPU {sq_cpu_s:.2f} s")
+    summary["curved squeezed_fnl"] = {"ms": sq_s * 1e3, "cpu_s": sq_cpu_s,
+                                      "max_rel_cpu": rel_sq,
+                                      "maldacena_rel": abs(sq["f_NL_sq"][0] / consistency - 1)}
+    summary["launches"] = launches
+    return sum(launches.values()), summary
+
+
 def main() -> int:
     import torch
 
@@ -2254,6 +2617,9 @@ def main() -> int:
     aa, aa_args, hyperbolic = cmb_models()  # phase 28
     t_cmb_models = time.perf_counter() - t2
     t2 = time.perf_counter()
+    quad, curved, c_args = spectra_models()  # phase 29
+    t_spectra_models = time.perf_counter() - t2
+    t2 = time.perf_counter()
 
     def timed(load, source):
         t = time.perf_counter()
@@ -2284,6 +2650,8 @@ def main() -> int:
         "B2 S3": (load_grid_scan, special["S3"].cuda_source("f32")),
         "B6 S2": (load_solver, special["S2"].cuda_solver_source()),
         "B6 α-attractor": (load_solver, aa.cuda_solver_source()),
+        "B6 quadratic": (load_solver, quad.cuda_solver_source()),
+        "B6 curved": (load_solver, curved.cuda_solver_source()),
         "B6 S2, instrumented": (lambda source: chain.load_parts(source, "smoke_s2"),
                                 special["S2"].cuda_solver_source()),
         **{f"{b} {name}": (load_grid_scan, special[name].cuda_source(precision))
@@ -2977,6 +3345,14 @@ def main() -> int:
     print(f"phase 28 on {card}: {time.perf_counter() - t_phase28:.1f} s; launches on its paths: "
           f"B6 {cmb_launches['B6']}, B1 {cmb_launches['B1']}; the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
+    # 29. perturbation spectra on the card
+    t_phase29 = time.perf_counter()
+    print(f"phase 29 models (bench's quadratic, the curved two-field model) built in "
+          f"{t_spectra_models:.2f} s (host, phase 2; the card: {card})")
+    spectra_launches, spectra = spectra_phase(quad, curved, c_args, device, card)
+    print(f"phase 29 on {card}: {time.perf_counter() - t_phase29:.1f} s; B6 launches on its "
+          f"paths: {spectra_launches}; the whole run {time.perf_counter() - t_start:.1f} s")
+    print("phase 29 summary: " + json.dumps(spectra))
     if parent_jobs:
         parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
             k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)
@@ -2989,8 +3365,8 @@ def main() -> int:
             "inflatox_tpu/ops/pallas_kernels.py:1055", b5_launches, b5_max_abs, b5_ms,
             b5_plain_ms, b5_bound),
         row("solver_b6_rkf", "inflatox_torch/csrc/solver.cu",
-            "inflatox_tpu/ops/pallas_solver.py:173", rkf["launches"], rkf["max_abs"], b6_ms,
-            b6_plain_ms, rkf["bound"]),
+            "inflatox_tpu/ops/pallas_solver.py:173", rkf["launches"] + spectra_launches,
+            rkf["max_abs"], b6_ms, b6_plain_ms, rkf["bound"]),
         row("solver_b6_rk4", "inflatox_torch/csrc/solver.cu",
             "inflatox_tpu/ops/pallas_solver.py:173", rk4["launches"], rk4["max_abs"], rk4_ms,
             rk4_plain_ms, rk4["bound"]),

@@ -32,10 +32,17 @@ and a gradient fit):
 >>> fit = fit_parameters(lambda a: (sr(pivot["x"], a)["n_s"] - 0.965) ** 2, args)
 >>> ricci = artifact.geometry.ricci_scalar(x_grid, args_tensor)
 
+The primordial spectra (δN on kernel B6; the mode and transport routes as
+torch RK4 loops on the device):
+
+>>> from inflatox.perturbations import delta_n_spectrum, mode_spectrum
+>>> dn = delta_n_spectrum(artifact, args, rows, times, order=2, device="cuda")
+>>> ms = mode_spectrum(artifact, args, rows, times, device="cuda")
+
 Every tensor is float64 and every device is explicit: ``GeneralisedAL``,
-the solvers in ``background`` and the functions of ``observables`` take
-``device=`` (``"cuda"`` by default) and never move work to another device
-on their own; ``artifact.geometry`` computes on the device of its inputs.  This
+the solvers in ``background`` and the functions of ``observables`` and
+``perturbations`` take ``device=`` (``"cuda"`` by default) and never move
+work to another device on their own; ``artifact.geometry`` computes on the device of its inputs.  This
 package imports neither ``jax`` nor ``inflatox_tpu``.
 """
 
@@ -58,6 +65,7 @@ from . import geometry
 from . import models
 from . import observables
 from . import parallel
+from . import perturbations
 
 __all__ = [
     "CompilationArtifact",
@@ -73,4 +81,5 @@ __all__ = [
     "models",
     "observables",
     "parallel",
+    "perturbations",
 ]

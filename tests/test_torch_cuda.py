@@ -643,3 +643,39 @@ def test_observables_on_the_card_match_the_cpu(doc, quadratic, cuda_device):
         fits[dev] = ob.fit_parameters(loss, starts, steps=30, device=dev)
     np.testing.assert_allclose(fits["cuda"].loss_history, fits["cpu"].loss_history, rtol=1e-9)
     np.testing.assert_allclose(fits["cuda"].params, fits["cpu"].params, rtol=1e-10)
+
+
+def test_spectra_on_the_card_match_the_cpu(quadratic, cuda_device):
+    """The perturbation spectra with device="cuda": the δN solves on kernel
+    B6 (one launch a call) against the plain solver on the CPU (N_grad within
+    1e-6, the second differences 1e-4, of their largest component); the mode
+    and transport routes on the same base rows against device="cpu"
+    (1e-10)."""
+    from inflatox_torch import perturbations as pt
+
+    m = np.ones(2)
+    rows, times = background.solve_eom(quadratic, m, 2000, [12.0, 0.0], [0.0, 0.0],
+                                       max_err=1e-9, solver="rkf", return_time=True,
+                                       device=cuda_device)
+    solves = cuda_solver.LAUNCHES
+    kw = dict(pivots=3, N_margin_start=5.0, N_margin_end=8.0, steps=2000, order=2)
+    dn = {dev: pt.delta_n_spectrum(quadratic, m, rows, times, device=dev, **kw)
+          for dev in ("cuda", "cpu")}
+    assert cuda_solver.LAUNCHES == solves + 1
+    for key, rtol in (("P_zeta", 1e-6), ("N_grad", 1e-6), ("N_hess", 1e-4), ("f_NL", 1e-4)):
+        want = dn["cpu"][key]
+        np.testing.assert_allclose(dn["cuda"][key], want, rtol=rtol,
+                                   atol=rtol * np.abs(want).max(), err_msg=key)
+    small = dict(pivots=3, N_margin_start=5.0, N_margin_end=8.0, dense_steps=800,
+                 tail_steps=300)
+    for route in (pt.mode_spectrum, pt.transport_spectrum):
+        on_card = route(quadratic, m, rows, times, device="cuda", **small)
+        on_cpu = route(quadratic, m, rows, times, device="cpu", **small)
+        assert set(on_card) == set(on_cpu)
+        for k in on_cpu:
+            np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-10, atol=1e-12,
+                                       err_msg=k)
+    solves = cuda_solver.LAUNCHES
+    sw = pt.mode_sweep(quadratic, np.array([[1.0, 1.0], [1.05, 1.0]]), [12.0, 0.0],
+                       [0.0, 0.0], steps=2000, device="cuda", **small)
+    assert cuda_solver.LAUNCHES == solves + 1 and sw["ok"].all()

@@ -22,6 +22,7 @@ EXPORTS = {
     "geometry",
     "observables",
     "parallel",
+    "perturbations",
     "log_info",
     "log_warn",
 }
@@ -41,6 +42,7 @@ MODULES = [
     "inflatox_torch.ops.cuda_solver",
     "inflatox_torch.parallel",
     "inflatox_torch.parallel.sweep",
+    "inflatox_torch.perturbations",
     "inflatox_torch.symbolic",
     "inflatox_torch.utils.devices",
     "inflatox_torch.utils.profiling",
