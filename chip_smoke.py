@@ -158,6 +158,22 @@ passes or ends the script with a nonzero exit:
     against δN within 8 % and Maldacena's relation within 5 %.  Its two B6
     libraries build in phase 2; the B6 row of the kernel table counts its
     launches.
+30. posterior sampling on the card (``inflatox_torch.inference``), no
+    kernel of its own (B1-B8's counts must not move): examples/posterior.py's
+    log-posterior (the quadratic model, (n_s, r) pseudo-data, the Gaussian
+    prior) with its value and gradient at three masses, and one HMC and one
+    NUTS transition of 4 chains from one pre-drawn block, each against
+    ``device="cpu"`` (rtol 1e-12); ms a transition on the card and on the
+    CPU (host clock, median of 3 runs of 20); launches a density evaluation
+    and a transition and the device's idle share from torch.profiler in a
+    fresh process (``chip_smoke.py --trace-worker DIR posterior``); the
+    density's batching route; examples/posterior.py's workload (4 chains,
+    24 leapfrog steps, ``POST_WARMUP`` + ``POST_SAMPLES`` transitions, cut
+    from 1000 + 3000, the standard errors printed) held to the port's
+    Fisher forecast at tests/test_inference.py:92's tolerances, and NUTS on
+    its correlated Gaussian (:44) at that test's tolerances (300 + 750
+    transitions, cut from 600 + 1500).  Prints a
+    ``phase 30 summary:`` JSON line.
 
 The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
 each distinct operation of the kind's fused point function once (the least
@@ -297,6 +313,22 @@ RTOL_DN_SECOND = 1e-4
 RTOL_SPECTRA = 1e-10
 FLOOR_SPECTRA = 1e-12
 STEPS_COUNTED, STEPS_TIMED = 100, 1000  # RK4 steps of each integrator
+# phase 30: posterior sampling, examples/posterior.py's workload
+POST_X, POST_THETA = [14.0, 6.0], [1.0, 0.7]  # the pivot and the fiducial masses
+POST_SIGMA, POST_PRIOR_SIG = {"n_s": 0.004, "r": 0.01}, 0.05
+POST_CHAINS, POST_LEAPFROG, POST_SEED = 4, 24, 0
+# examples/posterior.py takes 1000 + 3000 transitions and the NUTS test 600 +
+# 1500: ~450-650 s and ~40 s at the 100-165 ms and ~19 ms a transition
+# measured on the card (PERF.md §5), over phase 30's ~180 s; cut, the
+# standard errors printed
+POST_WARMUP, POST_SAMPLES = 200, 400
+POST_CUT = "; cut from examples/posterior.py's 1000 + 3000"
+RTOL_POSTERIOR = 1e-12  # the card against device="cpu"
+POST_TIMED, POST_COUNTED = 20, 3  # transitions a timed run; a profiled run
+# NUTS on the correlated Gaussian of tests/test_inference.py:44
+GAUSS_COV = [[1.0, 0.6, 0.0], [0.6, 2.0, 0.3], [0.0, 0.3, 0.5]]
+GAUSS_MEAN = [1.0, -2.0, 0.5]
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 300, 750, 7  # cut from the test's 600 + 1500
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(HERE, "build", "chip_smoke_profile")  # under .gitignore's build/
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
@@ -1052,8 +1084,11 @@ def sweep_worker(argv):
 def trace_worker(argv):
     """``--trace-worker DIR``: one hyperinflation ``complete_analysis`` at
     4096² on kernel B1 inside ``utils.profiling.trace(DIR)`` (phase 28);
-    prints ``{"B1": launches}`` as its last line."""
+    prints ``{"B1": launches}`` as its last line.  ``--trace-worker DIR
+    posterior``: phase 30's profile (:func:`posterior_trace_worker`)."""
     sys.path.insert(0, HERE)
+    if argv[1:2] == ["posterior"]:
+        return posterior_trace_worker(argv[0])
     import torch
 
     import inflatox_torch
@@ -2548,6 +2583,333 @@ def spectra_phase(quad, curved, c_args, device, card):
     return sum(launches.values()), summary
 
 
+# ------------------------------------------------------------------------- #
+# phase 30: posterior sampling on the card                                  #
+# ------------------------------------------------------------------------- #
+
+
+def posterior_model():
+    """Phase 30's model: examples/posterior.py's two-field quadratic
+    (m₁φ₁)² + (m₂φ₂)² on a flat metric."""
+    import sympy
+
+    import inflatox_torch
+
+    f1, f2, m1, m2 = sympy.symbols("phi_1 phi_2 m_1 m_2")
+    model = inflatox_torch.InflationModelBuilder.new(
+        [f1, f2], [[1, 0], [0, 1]], (m1 * f1) ** 2 + (m2 * f2) ** 2, "trivial",
+        silent=True).build()
+    return inflatox_torch.Compiler(model, silent=True).compile()
+
+
+def posterior_logps(art, devices):
+    """examples/posterior.py's log-posterior (the (n_s, r) pseudo-data at
+    the fiducial masses, measured on the CPU, and the Gaussian prior) on
+    each of ``devices``."""
+    import torch
+
+    from inflatox_torch import inference, observables
+
+    sr = observables.slow_roll(art, device="cpu")(POST_X, POST_THETA)
+    data = {"n_s": float(sr["n_s"]), "r": float(sr["r"])}
+    logps = {}
+    for dev in devices:
+        theta = torch.tensor(POST_THETA, dtype=torch.float64, device=dev)
+
+        def prior(th, theta=theta):
+            return -0.5 * torch.sum(((th - theta) / POST_PRIOR_SIG) ** 2)
+
+        logps[dev] = inference.observable_log_posterior(art, POST_X, data, POST_SIGMA,
+                                                        prior=prior, device=dev)
+    return logps
+
+
+def gaussian_logp(device):
+    """The correlated Gaussian of tests/test_inference.py:23-44."""
+    import numpy as np
+    import torch
+
+    prec = torch.tensor(np.linalg.inv(GAUSS_COV), device=device)
+    mean = torch.tensor(GAUSS_MEAN, dtype=torch.float64, device=device)
+
+    def logp(q):
+        r = q - mean
+        return -0.5 * r @ prec @ r
+
+    return logp
+
+
+def posterior_kernels(density, chains, d, device, gen):
+    """Phase 30's two transitions on ``device``: ``{"hmc": (kernel, draws),
+    "nuts": ...}``, each ``draws()`` one block from ``gen``."""
+    from inflatox_torch import inference
+
+    return {
+        "hmc": (inference._hmc_kernel(density, POST_LEAPFROG),
+                lambda: inference._hmc_draws(gen, chains, d, POST_LEAPFROG, device)),
+        "nuts": (inference._nuts_kernel(density, NUTS_DEPTH),
+                 lambda: inference._nuts_draws(gen, chains, d, NUTS_DEPTH, device)),
+    }
+
+
+def posterior_state(density, device):
+    """A start for phase 30's chains near the fiducial masses, the step and
+    the posterior's diagonal mass (tests/test_inference.py:92's scales)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(30)
+    q = torch.tensor(np.asarray(POST_THETA) + rng.normal(0.0, 0.05, (POST_CHAINS, 2)),
+                     device=device)
+    lp, g = density(q)
+    f64 = dict(dtype=torch.float64, device=device)
+    return (q, lp, g), torch.tensor(0.4, **f64), torch.tensor([2.4e-3, 2.4e-3], **f64)
+
+
+def posterior_trace_worker(out_dir):
+    """``--trace-worker DIR posterior``: torch.profiler (CPU and CUDA
+    activity) around phase 30's evaluations and transitions on the card;
+    prints the launches a density evaluation, an HMC and a NUTS transition
+    (the CPU-side ``cudaLaunchKernel`` calls) and the device's idle share
+    over the HMC window (the union of the trace's kernel intervals against
+    the annotated window's span) as its last line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from inflatox_torch import inference
+
+    device = torch.device("cuda", 0)
+    density = inference._Density(posterior_logps(posterior_model(), [device])[device])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(POST_SEED)
+    kernels = posterior_kernels(density, POST_CHAINS, 2, device, gen)
+    (q, lp, g), eps, inv_mass = posterior_state(density, device)
+
+    def transitions(name, n):
+        """``n`` transitions from the start; the evaluations of each (the
+        batch's, the most of its chains'), read after the last."""
+        kernel, draws = kernels[name]
+        state, used = (q, lp, g), []
+        for _ in range(n):
+            *state, _, evaluations = kernel(*state, draws(), eps, inv_mass)
+            used.append(evaluations.max())
+        return int(sum(used))
+
+    def launches(prof):
+        return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+    transitions("hmc", 2)
+    transitions("nuts", 2)
+    torch.cuda.synchronize()
+    out = {"route": density.route}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(POST_COUNTED):
+            density(q)
+        torch.cuda.synchronize()
+    out["launches_per_evaluation"] = launches(prof) / POST_COUNTED
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        leaves = transitions("nuts", POST_COUNTED)
+        torch.cuda.synchronize()
+    out["launches_per_nuts_transition"] = launches(prof) / POST_COUNTED
+    out["launches_per_nuts_leaf"] = launches(prof) / leaves
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("posterior_hmc"):
+            transitions("hmc", POST_COUNTED)
+            torch.cuda.synchronize()
+    out["launches_per_hmc_transition"] = launches(prof) / POST_COUNTED
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "posterior.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    window = [e for e in events if e.get("name") == "posterior_hmc"
+              and e.get("cat") == "user_annotation"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    out["kernels_in_trace"] = len(spans)
+    if window and spans:
+        start, end = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+        busy, last = 0.0, start
+        for a, b in spans:
+            a, b = max(a, last), min(b, end)
+            if b > a:
+                busy += b - a
+                last = b
+        out["idle_share"] = 1.0 - busy / (end - start)
+        out["window_ms"] = (end - start) / 1e3
+    else:
+        out["idle_share"] = None  # no CUDA activity in the trace: not measured
+    print(json.dumps(out))
+    return 0
+
+
+def posterior_phase(art, device, card):
+    """Phase 30: posterior sampling on the card (see the module docstring);
+    returns a summary of its numbers."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch import inference, observables
+    from inflatox_torch.ops import cuda_kernels, cuda_solver, special_eval
+
+    summary = {"card": card}
+    before = (cuda_kernels.launches(), cuda_solver.LAUNCHES, special_eval.LAUNCHES["B8"])
+    roles = {"card": device, "cpu": torch.device("cpu")}
+    logps = posterior_logps(art, roles.values())
+
+    # value and gradient, the card against the CPU
+    rng = np.random.default_rng(31)
+    worst = 0.0
+    for theta in np.asarray(POST_THETA) + rng.normal(0.0, 0.05, (3, 2)):
+        got = {}
+        for role, dev in roles.items():
+            th = torch.tensor(theta, device=dev, requires_grad=True)
+            lp = logps[dev](th)
+            check(lp.device == th.device and lp.dtype == torch.float64 and lp.shape == (),
+                  f"log-posterior on {dev}: {lp.dtype} {tuple(lp.shape)} on {lp.device}")
+            got[role] = {"logp": lp.detach(), "grad": torch.autograd.grad(lp, th)[0]}
+        worst = max(worst, close_values(got["card"], got["cpu"], RTOL_POSTERIOR))
+    summary["logp_max_rel_cpu"] = worst
+    print(f"observable_log_posterior at 3 masses on {card}: value and gradient within "
+          f"{worst:.3e} of device='cpu' (rtol {RTOL_POSTERIOR})")
+
+    # one HMC and one NUTS transition from the same pre-drawn block
+    densities = {role: inference._Density(logps[dev]) for role, dev in roles.items()}
+    for name in ("hmc", "nuts"):
+        gen = torch.Generator()
+        gen.manual_seed(POST_SEED)
+        if name == "hmc":
+            block = inference._hmc_draws(gen, POST_CHAINS, 2, POST_LEAPFROG, "cpu")
+        else:
+            block = inference._nuts_draws(gen, POST_CHAINS, 2, NUTS_DEPTH, "cpu")
+        outs = {}
+        for role, dev in roles.items():
+            state, eps, inv_mass = posterior_state(densities[role], dev)
+            kernel, _ = posterior_kernels(densities[role], POST_CHAINS, 2, dev, None)[name]
+            outs[role] = kernel(*state, tuple(t.to(dev) for t in block), eps, inv_mass)
+        card_out, cpu_out = outs["card"], outs["cpu"]
+        rel = close_values({k: v for k, v in zip(("q", "logp", "grad", "accept"), card_out)},
+                           {k: v for k, v in zip(("q", "logp", "grad", "accept"), cpu_out)},
+                           RTOL_POSTERIOR)
+        check(torch.equal(card_out[4].cpu(), cpu_out[4]),
+              f"{name}: evaluations {card_out[4].tolist()} against {cpu_out[4].tolist()}")
+        summary[f"{name}_transition_max_rel_cpu"] = rel
+        print(f"one {name.upper()} transition of {POST_CHAINS} chains from one pre-drawn "
+              f"block on {card}: within {rel:.3e} of device='cpu'; gradient evaluations a "
+              f"chain {card_out[4].tolist()}")
+
+    # ms a transition, the card and the CPU (host clock, median of 3 runs)
+    for role, dev in roles.items():
+        for name in ("hmc", "nuts"):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(POST_SEED)
+            kernel, draws = posterior_kernels(densities[role], POST_CHAINS, 2, dev, gen)[name]
+            state, eps, inv_mass = posterior_state(densities[role], dev)
+
+            def run(kernel=kernel, draws=draws, state=state, eps=eps, inv_mass=inv_mass):
+                s = state
+                for _ in range(POST_TIMED):
+                    *s, _, _ = kernel(*s, draws(), eps, inv_mass)
+
+            ms = host_clock_ms(run) / POST_TIMED
+            summary[f"{name}_ms_per_transition_{role}"] = ms
+    print(f"ms a transition of {POST_CHAINS} chains on the posterior (host clock, median of 3 "
+          f"runs of {POST_TIMED}; HMC at {POST_LEAPFROG} leapfrog steps, NUTS to depth "
+          f"{NUTS_DEPTH}) on {card}: HMC {summary['hmc_ms_per_transition_card']:.2f}, NUTS "
+          f"{summary['nuts_ms_per_transition_card']:.2f}; device='cpu' (the card host's CPU): "
+          f"HMC {summary['hmc_ms_per_transition_cpu']:.2f}, NUTS "
+          f"{summary['nuts_ms_per_transition_cpu']:.2f}")
+
+    # launches an evaluation and a transition, and the idle share, from
+    # torch.profiler in a fresh process (the CUPTI activity came back empty
+    # late in a long process, PERF.md §7)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    worker = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace-worker",
+                             PROFILE_DIR, "posterior"], capture_output=True, text=True,
+                            timeout=600)
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    check(worker.returncode == 0, f"posterior trace worker: exit {worker.returncode}: "
+          f"{worker.stderr.strip()[-500:]}")
+    traced = json.loads(worker.stdout.strip().splitlines()[-1])
+    summary.update(traced)
+    idle = traced["idle_share"]
+    print(f"torch.profiler on {card}, fresh process: {traced['launches_per_evaluation']:.2f} "
+          f"launches a density evaluation ({POST_CHAINS} chains), "
+          f"{traced['launches_per_hmc_transition']:.1f} an HMC transition, "
+          f"{traced['launches_per_nuts_transition']:.1f} a NUTS transition "
+          f"({traced['launches_per_nuts_leaf']:.1f} a lockstep leaf); device idle share over "
+          f"{POST_COUNTED} HMC transitions under the profiler: "
+          + ("not measured (no CUDA activity in the trace)" if idle is None else
+             f"{idle:.3f} of {traced['window_ms']:.1f} ms ({traced['kernels_in_trace']} "
+             "kernels)"))
+    print(f"batching route of the density: {densities['card'].route} (the card), "
+          f"{densities['cpu'].route} (device='cpu'); the trace worker's: {traced['route']}")
+
+    # examples/posterior.py's workload on the card, against the Fisher
+    # forecast at tests/test_inference.py:92's tolerances
+    t = time.perf_counter()
+    out = inference.sample_posterior(
+        logps[device], POST_THETA, num_samples=POST_SAMPLES, num_warmup=POST_WARMUP,
+        num_chains=POST_CHAINS, num_leapfrog=POST_LEAPFROG, seed=POST_SEED, device=device)
+    hmc_s = time.perf_counter() - t
+    s = out["samples"].reshape(-1, 2)
+    fisher = observables.fisher_matrix(art, POST_X, POST_THETA,
+                                       np.array([POST_SIGMA["n_s"], POST_SIGMA["r"]]),
+                                       device=device)
+    var_pred = np.diag(np.linalg.inv(fisher + np.eye(2) / POST_PRIOR_SIG**2))
+    var = np.diag(np.cov(s.T))
+    se_mean = np.sqrt(var / out["ess"])
+    check(np.all(np.isfinite(s)) and s.shape == (POST_CHAINS * POST_SAMPLES, 2),
+          f"samples: shape {s.shape}, finite {np.isfinite(s).all()}")
+    check(bool(np.all(np.abs(s.mean(0) - POST_THETA) <= 5e-3)),
+          f"posterior mean {s.mean(0)} beyond 5e-3 of {POST_THETA}")
+    check(bool(np.all(np.abs(var / var_pred - 1) <= 0.15)),
+          f"posterior variance {var} against the Fisher forecast {var_pred}: beyond 15 %")
+    check(bool(np.all(out["r_hat"] < 1.02)), f"R-hat {out['r_hat']}")
+    transitions = POST_WARMUP + POST_SAMPLES
+    summary["hmc_workload"] = {
+        "s": hmc_s, "ms_per_transition": hmc_s * 1e3 / transitions,
+        "warmup": POST_WARMUP, "samples": POST_SAMPLES, "ess": out["ess"].tolist(),
+        "r_hat": out["r_hat"].tolist(), "accept": float(out["accept_rate"].mean()),
+        "step_size": out["step_size"], "var_ratio": (var / var_pred).tolist(),
+        "mean_err": (s.mean(0) - POST_THETA).tolist(), "se_mean": se_mean.tolist()}
+    print(f"sample_posterior on {card} (examples/posterior.py's workload: {POST_CHAINS} "
+          f"chains, {POST_LEAPFROG} leapfrog steps, {POST_WARMUP} warmup + {POST_SAMPLES} "
+          f"draws{POST_CUT}): {hmc_s:.1f} s ({hmc_s * 1e3 / transitions:.2f} ms a transition); "
+          f"mean {s.mean(0)} ({np.abs(s.mean(0) - POST_THETA).max():.2e} off, standard error "
+          f"{se_mean.max():.2e}, tolerance 5e-3), variance / Fisher forecast "
+          f"{var / var_pred} (standard error {np.sqrt(2 / out['ess']).max():.3f}, tolerance "
+          f"0.15), ESS {out['ess']}, R-hat {out['r_hat'].max():.4f}, accept "
+          f"{out['accept_rate'].mean():.3f}, step {out['step_size']:.4f}")
+
+    # NUTS on the correlated Gaussian (tests/test_inference.py:44's case)
+    t = time.perf_counter()
+    out = inference.sample_posterior(
+        gaussian_logp(device), np.zeros(3), num_samples=NUTS_SAMPLES, num_warmup=NUTS_WARMUP,
+        num_chains=4, seed=2, algorithm="nuts", max_tree_depth=NUTS_DEPTH, device=device)
+    nuts_s = time.perf_counter() - t
+    s = out["samples"].reshape(-1, 3)
+    check(bool(np.all(np.abs(s.mean(0) - GAUSS_MEAN) <= 0.08)), f"NUTS mean {s.mean(0)}")
+    check(bool(np.all(np.abs(np.cov(s.T) - GAUSS_COV) <= 0.25)), f"NUTS cov {np.cov(s.T)}")
+    check(bool(np.all(out["r_hat"] < 1.02) and np.all(out["ess"] > 200)
+               and out["accept_rate"].mean() > 0.5),
+          f"NUTS R-hat {out['r_hat']}, ESS {out['ess']}, accept {out['accept_rate']}")
+    summary["nuts_workload"] = {
+        "s": nuts_s, "ms_per_transition": nuts_s * 1e3 / (NUTS_WARMUP + NUTS_SAMPLES),
+        "ess": out["ess"].tolist(), "r_hat": out["r_hat"].tolist(),
+        "accept": float(out["accept_rate"].mean())}
+    print(f"NUTS on the correlated Gaussian on {card} (4 chains, {NUTS_WARMUP} warmup + "
+          f"{NUTS_SAMPLES} draws, cut from the test's 600 + 1500, depth {NUTS_DEPTH}): "
+          f"{nuts_s:.1f} s "
+          f"({nuts_s * 1e3 / (NUTS_WARMUP + NUTS_SAMPLES):.2f} ms a transition); mean off by "
+          f"{np.abs(s.mean(0) - GAUSS_MEAN).max():.3f} (0.08), covariance by "
+          f"{np.abs(np.cov(s.T) - GAUSS_COV).max():.3f} (0.25), ESS {out['ess']}, R-hat "
+          f"{out['r_hat'].max():.4f}, accept {out['accept_rate'].mean():.3f}")
+
+    after = (cuda_kernels.launches(), cuda_solver.LAUNCHES, special_eval.LAUNCHES["B8"])
+    check(after == before, f"phase 30 launched a kernel of B1-B8: {before} -> {after}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2619,6 +2981,9 @@ def main() -> int:
     t2 = time.perf_counter()
     quad, curved, c_args = spectra_models()  # phase 29
     t_spectra_models = time.perf_counter() - t2
+    t2 = time.perf_counter()
+    post_art = posterior_model()  # phase 30
+    t_post_model = time.perf_counter() - t2
     t2 = time.perf_counter()
 
     def timed(load, source):
@@ -3353,6 +3718,15 @@ def main() -> int:
     print(f"phase 29 on {card}: {time.perf_counter() - t_phase29:.1f} s; B6 launches on its "
           f"paths: {spectra_launches}; the whole run {time.perf_counter() - t_start:.1f} s")
     print("phase 29 summary: " + json.dumps(spectra))
+    # 30. posterior sampling on the card
+    t_phase30 = time.perf_counter()
+    print(f"phase 30 model (examples/posterior.py's quadratic) built in {t_post_model:.2f} s "
+          f"(host, phase 2; the card: {card})")
+    posterior = posterior_phase(post_art, device, card)
+    print(f"phase 30 on {card}: {time.perf_counter() - t_phase30:.1f} s; kernel launches on its "
+          f"paths: none (B1-B8 counts unchanged); the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print("phase 30 summary: " + json.dumps(posterior))
     if parent_jobs:
         parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
             k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)

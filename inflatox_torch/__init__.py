@@ -62,6 +62,7 @@ from .version import __version__
 from . import background
 from . import consistency_conditions
 from . import geometry
+from . import inference
 from . import models
 from . import observables
 from . import parallel
@@ -73,9 +74,11 @@ __all__ = [
     "Compiler",
     "InflationModel",
     "InflationModelBuilder",
+    "__version__",
     "background",
     "consistency_conditions",
     "geometry",
+    "inference",
     "log_info",
     "log_warn",
     "models",

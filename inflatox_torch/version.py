@@ -12,6 +12,9 @@ __version__ = "0.1.0"
 # inflatox_tpu/version.py, so bundles cross between the two packages.
 __schema_version__ = "1.0.0"
 
+#: The JAX package's alias of the schema version, kept under the same name.
+__abi_version__ = __schema_version__
+
 
 def schema_compatible(other: str) -> bool:
     """True if a bundle written with schema version ``other`` can be loaded

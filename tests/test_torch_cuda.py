@@ -679,3 +679,46 @@ def test_spectra_on_the_card_match_the_cpu(quadratic, cuda_device):
     sw = pt.mode_sweep(quadratic, np.array([[1.0, 1.0], [1.05, 1.0]]), [12.0, 0.0],
                        [0.0, 0.0], steps=2000, device="cuda", **small)
     assert cuda_solver.LAUNCHES == solves + 1 and sw["ok"].all()
+
+
+def test_posterior_on_the_card_matches_the_cpu(quadratic, cuda_device):
+    """The log-posterior's value and gradient, one HMC and one NUTS
+    transition from one pre-drawn block, on the card against the CPU
+    (1e-12): plain torch, no kernel of the port's."""
+    from inflatox_torch import inference
+    from inflatox_torch import observables as ob
+
+    x, theta = np.array([14.0, 6.0]), np.array([1.0, 0.7])
+    sr = ob.slow_roll(quadratic, device="cpu")(x, theta)
+    data = {"n_s": float(sr["n_s"]), "r": float(sr["r"])}
+    sigma = {"n_s": 0.004, "r": 0.01}
+    densities, points = {}, np.array([[1.02, 0.66], [0.97, 0.74], [1.05, 0.71]])
+    for dev in ("cuda", "cpu"):
+        centre = torch.tensor(theta, device=dev)
+
+        def prior(th, centre=centre):
+            return -0.5 * torch.sum(((th - centre) / 0.05) ** 2)
+
+        logp = inference.observable_log_posterior(quadratic, x, data, sigma, prior=prior,
+                                                  device=dev)
+        densities[dev] = inference._Density(logp)
+    got = {dev: densities[dev](torch.tensor(points, device=dev)) for dev in densities}
+    assert got["cuda"][0].device.type == "cuda" and densities["cuda"].route == "vmap"
+    for a, b in zip(got["cuda"], got["cpu"]):
+        _close(a.cpu().numpy(), b.numpy())
+
+    gen = torch.Generator().manual_seed(11)
+    blocks = {"hmc": inference._hmc_draws(gen, 3, 2, 24, "cpu"),
+              "nuts": inference._nuts_draws(gen, 3, 2, 7, "cpu")}
+    for name, block in blocks.items():
+        outs = {}
+        for dev, density in densities.items():
+            kernel = (inference._hmc_kernel(density, 24) if name == "hmc"
+                      else inference._nuts_kernel(density, 7))
+            f64 = dict(dtype=torch.float64, device=dev)
+            q = torch.tensor(points, device=dev)
+            outs[dev] = kernel(q, *density(q), tuple(t.to(dev) for t in block),
+                               torch.tensor(0.4, **f64), torch.tensor([2.4e-3, 2.4e-3], **f64))
+        for a, b in zip(outs["cuda"][:4], outs["cpu"][:4]):
+            _close(a.cpu().numpy(), b.numpy())
+        assert torch.equal(outs["cuda"][4].cpu(), outs["cpu"][4]), name

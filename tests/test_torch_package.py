@@ -20,11 +20,13 @@ EXPORTS = {
     "background",
     "consistency_conditions",
     "geometry",
+    "inference",
     "observables",
     "parallel",
     "perturbations",
     "log_info",
     "log_warn",
+    "__version__",
 }
 
 MODULES = [
@@ -33,6 +35,7 @@ MODULES = [
     "inflatox_torch.compiler",
     "inflatox_torch.consistency_conditions",
     "inflatox_torch.geometry",
+    "inflatox_torch.inference",
     "inflatox_torch.lowering.cuda_codegen",
     "inflatox_torch.lowering.torch_lowering",
     "inflatox_torch.models",
@@ -93,16 +96,19 @@ def test_schema_version_is_shared():
     import inflatox_tpu.version as jv
 
     assert tv.__schema_version__ == jv.__schema_version__
+    assert tv.__abi_version__ == jv.__abi_version__ == tv.__schema_version__
 
 
 def test_sources_import_no_jax():
-    """No source of the port, nor chip_smoke.py, has an import of jax or of
-    the JAX package (names in comments and docstrings are fine)."""
+    """No source of the port, nor chip_smoke.py nor the port's examples, has
+    an import of jax or of the JAX package (names in comments and
+    docstrings are fine)."""
     import re
     from pathlib import Path
 
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|inflatox_tpu)\b", re.MULTILINE)
-    sources = sorted(Path(REPO, "inflatox_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    sources = (sorted(Path(REPO, "inflatox_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+               + sorted(Path(REPO, "examples").glob("torch_*.py")))
     assert len(sources) > 10
     offending = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offending
