@@ -174,6 +174,26 @@ passes or ends the script with a nonzero exit:
     its correlated Gaussian (:44) at that test's tolerances (300 + 750
     transitions, cut from 600 + 1500).  Prints a
     ``phase 30 summary:`` JSON line.
+31. many devices (``inflatox_torch.parallel``) on the card, no kernel of
+    its own: meshes (a) ``make_mesh()``, the card as one slot, and (b) four
+    slots on cuda:0 (a 6-row grid over them must raise; its solves and
+    survey take 4093 trajectories and its sweep 31 sets, the padding
+    paths); ``sharded_scan`` of cfg1 in f64 (B1) and f32 (B2) and of EGNO
+    at 2048² in double-double (B4), ``sharded_scan_ot`` over phase 8's 8.19
+    M points (B5a), ``sharded_solve_eom_batch`` at cfg5d with shared and
+    per-trajectory masses (B6), ``parameter_sweep(mesh=)`` at cfg5 (B7a),
+    ``survey_initial_conditions(mesh=)`` at cfg5e, each bit for bit the
+    unsharded call, launched once a slot (counted), cfg1's rows 0-63 and
+    cfg5d's trajectories 0-63 also against the CPU; the spectra of phase
+    29's quadratic model (one set, 8 pivots, the RK4 loops at 1000 + 500
+    steps) and ``sample_posterior`` on phase 30's model (4 chains, 20 + 20
+    transitions) over a 2-slot mesh (rtol 1e-12; the draws bit for bit);
+    then (c) two ``chip_smoke.py --dist-worker ADDRESS RANK`` processes
+    sharing cuda:0 through ``distributed.initialize`` (gloo), each rank's
+    gathered cfg1 scan and cfg5d solve bit for bit its single-device call.
+    Sharded and unsharded times side by side (CUDA events over chained
+    calls for the kernel paths, the host clock for the user-facing calls)
+    and a ``phase 31 summary:`` JSON line.
 
 The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
 each distinct operation of the kind's fused point function once (the least
@@ -206,6 +226,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -329,6 +350,20 @@ POST_TIMED, POST_COUNTED = 20, 3  # transitions a timed run; a profiled run
 GAUSS_COV = [[1.0, 0.6, 0.0], [0.6, 2.0, 0.3], [0.0, 0.3, 0.5]]
 GAUSS_MEAN = [1.0, -2.0, 0.5]
 NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 300, 750, 7  # cut from the test's 600 + 1500
+# phase 31: many devices (meshes of the port's parallel package)
+MESH_SLOTS = 4  # mesh (b): four slots on cuda:0
+MESH_CFG1_N, MESH_EGNO_N = 4096, 2048  # bench cfg1's grid; EGNO's (cfg3)
+MESH_SOLVE_B = 4093  # mesh (b)'s solves and survey: cfg5d's 4096 less 3, not a multiple of 4
+MESH_SWEEP_SETS = 31  # mesh (b)'s sweep: cfg5's 32 less 1
+MESH_SOLVE_TIMED = 10  # chained sharded solves a timing window
+SPECTRA_MESH_SLOTS = 2  # the spectra's and the posterior's mesh
+# the mode and transport loops at 1000 + 500 RK4 steps (phase 29's 4000 +
+# 1500 cut: the loops are launch-bound, and the sharded call runs one
+# loop a slot)
+MESH_SPECTRA_STEPS = {"dense_steps": 1000, "tail_steps": 500}
+RTOL_MESH_SPECTRA = 1e-12  # the RK4 loops' batched products round with the batch
+MESH_POST_WARMUP, MESH_POST_SAMPLES = 20, 20
+DIST_TIMEOUT_S = 300  # each --dist-worker process
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(HERE, "build", "chip_smoke_profile")  # under .gitignore's build/
 SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke_sweep")  # under .gitignore's build/
@@ -849,9 +884,27 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
           f"most for one trajectory {attempts.max().item()}; host clock: user-facing "
           f"call {host_s:.3f} s, plain version {plain_s:.2f} s")
     m = 64
-    cpu_rows, cpu_times = solve_torch(art, pt[:m].cpu() if pt.ndim == 2 else pt.cpu(),
-                                      steps, ft[:m].cpu(), dt[:m].cpu(), max_err, solver)
-    kc, kt = k_rows[:m].cpu(), k_times[:m].cpu()
+    cpu = solve_torch(art, pt[:m].cpu() if pt.ndim == 2 else pt.cpu(),
+                      steps, ft[:m].cpu(), dt[:m].cpu(), max_err, solver)
+    cpu_rows_check(k_rows[:m].cpu(), k_times[:m].cpu(), *cpu, n, label)
+    n_bytes = k_rows.numel() * 8 + k_times.numel() * 8 + 2 * ft.numel() * 8 + pt.numel() * 8
+    n_ops = attempt_ops(art, solver) * attempts.sum().item()
+    return {"launches": launches, "max_abs": absolute, "rows": k_rows, "times": k_times,
+            "plain_s": plain_s,
+            "args": (pt, steps, ft, dt, max_err, solver), "bound": bound(n_bytes, n_ops),
+            "attempts": attempts, "mean_attempts": mean_attempts, "n_ops": n_ops,
+            "n_bytes": n_bytes, "cpu": cpu}
+
+
+def cpu_rows_check(kc, kt, cpu_rows, cpu_times, n, label):
+    """B6's first trajectories (rows ``kc``, times ``kt``, on the host)
+    against the plain version's on the CPU: the times within
+    RTOL_CPU_TIMES, the state within RTOL_CPU_PHYSICAL of each component's
+    largest value while H > 0 and RTOL_CPU_ALL in all rows, NaN masks
+    identical."""
+    import torch
+
+    m = kc.shape[0]
     rel_t, _, _ = compare(kt, cpu_times, RTOL_CPU_TIMES)
     check(torch.equal(torch.isnan(kc), torch.isnan(cpu_rows)), f"{label}: CPU NaN masks differ")
     physical = (kc[..., 2 * n] > 0) & (cpu_rows[..., 2 * n] > 0)
@@ -866,13 +919,6 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
           f"max_rel={rel_t:.3e}; state, relative to each component's largest value, while "
           f"H > 0 ({physical.double().mean().item():.4f} of the rows) {rel_p:.3e}, in all "
           f"rows {rel_c:.3e}; bit_identical={(kc == cpu_rows).double().mean().item():.6f}")
-    n_bytes = k_rows.numel() * 8 + k_times.numel() * 8 + 2 * ft.numel() * 8 + pt.numel() * 8
-    n_ops = attempt_ops(art, solver) * attempts.sum().item()
-    return {"launches": launches, "max_abs": absolute, "rows": k_rows, "times": k_times,
-            "plain_s": plain_s,
-            "args": (pt, steps, ft, dt, max_err, solver), "bound": bound(n_bytes, n_ops),
-            "attempts": attempts, "mean_attempts": mean_attempts, "n_ops": n_ops,
-            "n_bytes": n_bytes}
 
 
 def cpu_band(art, kind, args, extent, shape, rows, precision="f64"):
@@ -2910,6 +2956,383 @@ def posterior_phase(art, device, card):
     return summary
 
 
+# ------------------------------------------------------------------------- #
+# phase 31: many devices on the card                                        #
+# ------------------------------------------------------------------------- #
+
+
+def same_bits(got, want, label):
+    """Fails unless two results (tensors or numpy arrays) have one shape, one
+    dtype and the same bytes (NaN and ±inf masks included)."""
+    import numpy as np
+
+    def host(v):
+        return np.ascontiguousarray(v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v))
+
+    got, want = host(got), host(want)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+    check(bool(np.array_equal(got.view(np.uint8), want.view(np.uint8))),
+          f"{label}: not bit for bit the unsharded call")
+
+
+def mesh_counted(label, fn, kernel, expected):
+    """``fn()`` with every launch count set to 0 before and read after:
+    fails unless ``kernel`` (a B1-B7 name, "B6", or None for none) was
+    launched ``expected`` times and no other kernel at all."""
+    import torch
+
+    from inflatox_torch.ops import cuda_kernels, cuda_solver
+
+    reset_counts()
+    cuda_solver.LAUNCHES = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v}
+    if cuda_solver.LAUNCHES:
+        counts["B6"] = cuda_solver.LAUNCHES
+    want = {kernel: expected} if kernel else {}
+    check(counts == want, f"phase 31 {label}: launches {counts}, expected {want}")
+    return out
+
+
+def mesh_phase(art, args, al, egno, egno_args, quad, post_art, rkf, pts, device, card):
+    """Phase 31: the port's meshes on the card (module docstring); returns
+    the phase's summary."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch import background, inference
+    from inflatox_torch import perturbations as pert
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.ops.cuda_kernels import PRECISIONS, scan_cuda, scan_points_cuda
+    from inflatox_torch.ops.cuda_solver import solve_cuda
+    from inflatox_torch.parallel import (
+        make_mesh,
+        parameter_sweep,
+        sharded_scan,
+        sharded_scan_ot,
+        sharded_solve_eom_batch,
+    )
+
+    card_mesh = make_mesh()  # (a): the card, one slot
+    check(card_mesh.size == torch.cuda.device_count() == 1,
+          f"make_mesh() has {card_mesh.size} slots on {torch.cuda.device_count()} card(s)")
+    four = make_mesh(("grid",), devices=[device] * MESH_SLOTS)  # (b): four slots on cuda:0
+    meshes = {"a": card_mesh, "b": four}
+    summary = {"card": card, "launches": {}, "ms": {}}
+
+    def record(name, sharded_ms, single_ms, launches):
+        summary["ms"][name] = {"sharded": sharded_ms, "unsharded": single_ms}
+        summary["launches"][name] = launches
+
+    # grid scans: cfg1 in f64 (B1) and f32 (B2), EGNO at 2048² in
+    # double-double (B4); kernel paths timed with CUDA events, in turns
+    egno_al = GeneralisedAL(egno, device=device, validate_basis=False)
+    for label, cond, a, p, extent, n, precision in (
+            ("cfg1 f64", al, art, args, DOC_EXTENT, MESH_CFG1_N, "f64"),
+            ("cfg1 f32", al, art, args, DOC_EXTENT, MESH_CFG1_N, "f32"),
+            ("EGNO dd", egno_al, egno, egno_args, EGNO_EXTENT, MESH_EGNO_N, "dd")):
+        kernel = PRECISIONS[precision].grid_kernel
+        single = scan_cuda(a, "complete_analysis", p, extent, (n, n), device, precision)
+        for m, mesh in meshes.items():
+            slots = mesh.shape["grid"]
+
+            def sharded(mesh=mesh):
+                return sharded_scan(cond, p, extent, (n, n), mesh, precision=precision)
+
+            name = f"sharded_scan {label} {n}² mesh ({m})"
+            got = mesh_counted(name, sharded, kernel, slots)
+            same_bits(got, single, name)
+            if label == "cfg1 f64" and m == "b":
+                rows = min(64, n)
+                rel, _, _ = compare(got[:, :rows].cpu(), cpu_band(a, "complete_analysis", p,
+                                                                  extent, (n, n), rows))
+                print(f"{name}: rows 0-{rows - 1} vs plain torch on the CPU max_rel={rel:.3e} "
+                      f"(rtol {RTOL})")
+            ms, single_ms, windows = in_turns(
+                sharded, lambda: scan_cuda(a, "complete_analysis", p, extent, (n, n), device,
+                                           precision), N_TIMED, N_TIMED)
+            record(name, ms, single_ms, {kernel: slots})
+            print(f"{name} on {card}: {slots} {kernel} launch(es), bit for bit the unsharded "
+                  f"scan; {ms:.4f} ms a call against {single_ms:.4f} unsharded (CUDA events, "
+                  f"{N_TIMED} chained calls, in turns: {', '.join(f'{w:.4f}' for w in windows)})")
+        del single
+    with_six = False
+    try:
+        sharded_scan(al, args, DOC_EXTENT, (6, MESH_CFG1_N), four)
+    except ValueError as exc:
+        with_six = "divisible" in str(exc)
+    check(with_six, "a 6-row grid over four slots did not raise")
+    # the user-facing call: maps to the host (pinned per shard) against
+    # complete_analysis(output="f64")
+    n = MESH_CFG1_N
+    for m, mesh in meshes.items():
+        name = f"sharded_scan cfg1 output='f64' mesh ({m})"
+        got = mesh_counted(name, lambda mesh=mesh: sharded_scan(al, args, DOC_EXTENT, (n, n),
+                                                                mesh, output="f64"),
+                           "B1", mesh.shape["grid"])
+        same_bits(got, np.stack(al.complete_analysis(args, *DOC_EXTENT, n, n, progress=False)),
+                  name)
+        ms = host_clock_ms(lambda mesh=mesh: sharded_scan(al, args, DOC_EXTENT, (n, n), mesh,
+                                                          output="f64"))
+        single_ms = host_clock_ms(lambda: al.complete_analysis(args, *DOC_EXTENT, n, n,
+                                                               progress=False))
+        record(name, ms, single_ms, {"B1": mesh.shape["grid"]})
+        print(f"{name} on {card}: {ms:.1f} ms against complete_analysis(output='f64') "
+              f"{single_ms:.1f} ms (host clock, median of 3)")
+    del got
+
+    # B5a over phase 8's 8.19 M solved points
+    single = scan_points_cuda(art, "complete_analysis", args, pts)
+    for m, mesh in meshes.items():
+        slots = mesh.shape["grid"]
+        name = f"sharded_scan_ot {pts.shape[0]} points mesh ({m})"
+        got = mesh_counted(name, lambda mesh=mesh: sharded_scan_ot(al, args, pts, mesh),
+                           "B5a", slots)
+        same_bits(got, single, name)
+        ms, single_ms, _ = in_turns(lambda mesh=mesh: sharded_scan_ot(al, args, pts, mesh),
+                                    lambda: scan_points_cuda(art, "complete_analysis", args, pts),
+                                    N_TIMED, N_TIMED)
+        record(name, ms, single_ms, {"B5a": slots})
+        print(f"{name} on {card}: {slots} B5a launch(es), bit for bit; {ms:.4f} ms against "
+              f"{single_ms:.4f} unsharded (CUDA events, {N_TIMED} chained calls, in turns)")
+    del single, got
+
+    # B6 at cfg5d: 4096 × 2000 RKF45, shared and per-trajectory masses; mesh
+    # (b) takes 4093 trajectories (not a multiple of 4: the padding path)
+    pt, steps, ft, dt, max_err, _ = rkf["args"]
+    f0 = ft.cpu().numpy()
+    masses = np.linspace(0.5, 2.0, B_SOLVE)[:, None]
+    mt = torch.tensor(masses, device=device)
+    for m, mesh in meshes.items():
+        axis = mesh.axis_names[0]
+        slots = mesh.shape[axis]
+        b = B_SOLVE if m == "a" else MESH_SOLVE_B
+        for pars, ptens, what in ((args, pt, "shared"), (masses[:b], mt[:b], "per-trajectory")):
+            name = f"sharded_solve_eom_batch cfg5d {b}x{steps} {what} mesh ({m})"
+            single = solve_cuda(art, ptens, steps, ft[:b], dt[:b], max_err, "rkf")
+            rows, times = mesh_counted(name, lambda mesh=mesh, pars=pars: (
+                sharded_solve_eom_batch(art, pars, steps, f0[:b], f0[:b] * 0.0, mesh,
+                                        solve_axis=axis, max_err=max_err, return_time=True)),
+                "B6", slots)
+            same_bits(rows, single[0], name)
+            same_bits(times, single[1], name + " (times)")
+            if what == "shared" and m == "b":  # against phase 8's CPU rows
+                k = min(b, rkf["cpu"][0].shape[0])
+                cpu_rows_check(torch.from_numpy(rows[:k]), torch.from_numpy(times[:k]),
+                               rkf["cpu"][0][:k], rkf["cpu"][1][:k], art.n_fields, name)
+
+            def kernel_path(mesh=mesh, pars=pars):
+                sharded_solve_eom_batch(art, pars, steps, f0[:b], f0[:b] * 0.0, mesh,
+                                        solve_axis=axis, max_err=max_err, combine="device")
+
+            ms, single_ms, _ = in_turns(kernel_path, lambda ptens=ptens: solve_cuda(
+                art, ptens, steps, ft[:b], dt[:b], max_err, "rkf"), MESH_SOLVE_TIMED,
+                MESH_SOLVE_TIMED)
+            host_ms = host_clock_ms(lambda mesh=mesh, pars=pars: background.solve_eom_batch(
+                art, pars, steps, f0[:b], f0[:b] * 0.0, max_err=max_err, solver="rkf",
+                mesh=mesh, device=device))
+            single_host = host_clock_ms(lambda pars=pars: background.solve_eom_batch(
+                art, pars, steps, f0[:b], f0[:b] * 0.0, max_err=max_err, solver="rkf",
+                device=device))
+            record(name, ms, single_ms, {"B6": slots})
+            summary["ms"][name].update({"host_sharded": host_ms, "host_unsharded": single_host})
+            print(f"{name} on {card}: {slots} B6 launch(es), rows and times bit for bit; "
+                  f"combine='device' {ms:.4f} ms against {single_ms:.4f} unsharded (CUDA "
+                  f"events, {MESH_SOLVE_TIMED} chained calls, in turns); "
+                  f"background.solve_eom_batch(mesh=) {host_ms:.1f} ms against "
+                  f"{single_host:.1f} ms (host clock, median of 3)")
+    del single, rows, times
+
+    # B7a at cfg5 (32 × 512²); mesh (b) 31 sets
+    for m, mesh in meshes.items():
+        axis = mesh.axis_names[0]
+        slots = mesh.shape[axis]
+        sets = SWEEP_SETS if m == "a" else MESH_SWEEP_SETS
+        batch = np.linspace(0.5, 2.0, SWEEP_SETS)[:sets, None]
+        name = f"parameter_sweep cfg5 {sets}x{SWEEP_N}² mesh ({m})"
+
+        def sweep(mesh=mesh, batch=batch, axis=axis):
+            return parameter_sweep(al, batch, DOC_EXTENT, (SWEEP_N, SWEEP_N), mesh=mesh,
+                                   sweep_axis=axis, progress=False)
+
+        got = mesh_counted(name, sweep, "B7a", slots)
+        same_bits(got, parameter_sweep(al, batch, DOC_EXTENT, (SWEEP_N, SWEEP_N),
+                                       progress=False), name)
+        ms = host_clock_ms(sweep)
+        single_ms = host_clock_ms(lambda batch=batch: parameter_sweep(
+            al, batch, DOC_EXTENT, (SWEEP_N, SWEEP_N), progress=False))
+        record(name, ms, single_ms, {"B7a": slots})
+        print(f"{name} on {card}: {slots} B7a launch(es), bit for bit; {ms:.1f} ms against "
+              f"{single_ms:.1f} ms unsharded (host clock, median of 3)")
+    del got
+
+    # the survey at cfg5e (phase 10's starts); mesh (b) 4093 of them
+    f0s = np.random.default_rng(1).uniform(1.5, 2.5, (2, B_SOLVE)).T.copy()
+    for m, mesh in meshes.items():
+        slots = mesh.shape[mesh.axis_names[0]]
+        b = B_SOLVE if m == "a" else MESH_SOLVE_B
+        name = f"survey_initial_conditions cfg5e {b}x{STEPS} mesh ({m})"
+
+        def survey(mesh=mesh, b=b):
+            return background.survey_initial_conditions(art, args, STEPS, f0s[:b], np.zeros(2),
+                                                        max_err=1e-6, chunk=B_SOLVE, mesh=mesh,
+                                                        device=device)
+
+        got = mesh_counted(name, survey, "B6", slots)
+        want = background.survey_initial_conditions(art, args, STEPS, f0s[:b], np.zeros(2),
+                                                    max_err=1e-6, chunk=B_SOLVE, device=device)
+        for key in want:
+            same_bits(got[key], want[key], f"{name} {key}")
+        ms = host_clock_ms(survey)
+        single_ms = host_clock_ms(lambda b=b: background.survey_initial_conditions(
+            art, args, STEPS, f0s[:b], np.zeros(2), max_err=1e-6, chunk=B_SOLVE, device=device))
+        record(name, ms, single_ms, {"B6": slots})
+        print(f"{name} on {card}: {slots} B6 launch(es), all five outputs bit for bit; "
+              f"{ms:.1f} ms against {single_ms:.1f} ms unsharded (host clock, median of 3)")
+
+    # the spectra: phase 29's quadratic model, one set, 8 pivots, a 2-slot
+    # mesh; δN's solve split over it, the RK4 loops' pivots split (rtol 1e-12)
+    two = make_mesh(("grid",), devices=[device] * SPECTRA_MESH_SLOTS)
+    m_args = np.array([1.0, 1.0])
+    rows, times = background.solve_eom(quad, m_args, SPECTRA_KW["steps"], [12.0, 0.0],
+                                       [0.0, 0.0], max_err=1e-8, solver="rkf",
+                                       return_time=True, device=device)
+    dn_kw = {k: SPECTRA_KW[k] for k in ("pivots", "N_margin_start", "N_margin_end", "steps")}
+    loop_kw = dict(pivots=SPECTRA_KW["pivots"], N_margin_start=SPECTRA_KW["N_margin_start"],
+                   N_margin_end=SPECTRA_KW["N_margin_end"], **MESH_SPECTRA_STEPS)
+    for route, fn, kw, kernel, launches in (
+            ("delta_n_spectrum", pert.delta_n_spectrum, dn_kw, "B6", SPECTRA_MESH_SLOTS),
+            ("mode_spectrum", pert.mode_spectrum, loop_kw, None, 0),
+            ("transport_spectrum", pert.transport_spectrum, loop_kw, None, 0)):
+        name = f"{route} quadratic 8 pivots, 2-slot mesh"
+        t = time.perf_counter()
+        got = mesh_counted(name, lambda fn=fn, kw=kw: fn(quad, m_args, rows, times, mesh=two,
+                                                         device=device, **kw), kernel, launches)
+        ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = fn(quad, m_args, rows, times, device=device, **kw)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t) * 1e3
+        floors = {k: FLOOR_SPECTRA for k in ("cos_delta", "T_RS")}
+        rel = max(close_values(got[k], want[k], RTOL_MESH_SPECTRA, floors.get(k, 0.0))
+                  for k in want)
+        record(name, ms, single_ms, {kernel: launches} if kernel else {})
+        summary["ms"][name]["max_rel"] = rel
+        print(f"{name} on {card}: {ms:.1f} ms against {single_ms:.1f} ms unsharded (host "
+              f"clock, one call each); B6 launches {launches if kernel else 0}; sharded vs "
+              f"unsharded max_rel={rel:.3e} (rtol {RTOL_MESH_SPECTRA})")
+
+    # the posterior: phase 30's model, 4 chains over a 2-slot mesh
+    logp = posterior_logps(post_art, [device])[device]
+    post_kw = dict(num_samples=MESH_POST_SAMPLES, num_warmup=MESH_POST_WARMUP,
+                   num_chains=POST_CHAINS, num_leapfrog=POST_LEAPFROG, seed=POST_SEED,
+                   device=device)
+    name = f"sample_posterior {POST_CHAINS} chains, 2-slot mesh"
+    t = time.perf_counter()
+    got = mesh_counted(name, lambda: inference.sample_posterior(logp, POST_THETA, mesh=two,
+                                                                **post_kw), None, 0)
+    ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want = inference.sample_posterior(logp, POST_THETA, **post_kw)
+    single_ms = (time.perf_counter() - t) * 1e3
+    for key in ("samples", "log_prob", "accept_rate", "inv_mass"):
+        same_bits(got[key], want[key], f"{name} {key}")
+    check(got["step_size"] == want["step_size"], f"{name}: step sizes differ")
+    record(name, ms, single_ms, {})
+    print(f"{name} on {card}: {MESH_POST_WARMUP} + {MESH_POST_SAMPLES} HMC transitions in "
+          f"{ms:.0f} ms against {single_ms:.0f} ms unsharded (host clock, one call each); the "
+          f"draws bit for bit; no kernel launched")
+
+    # (c): two processes sharing cuda:0 (gloo), each rank's gathered result
+    # bit for bit its single-device call
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               f"localhost:{port}", str(rank)], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"OK process {rank}" in out,
+              f"--dist-worker {rank} failed (exit {p.returncode}):\n{out[-4000:]}")
+        result = json.loads(out.strip().splitlines()[-1])
+        summary[f"process {rank}"] = result
+        print(f"two processes on {card}, rank {rank}: " + json.dumps(result))
+    return summary
+
+
+def dist_worker(argv):
+    """``--dist-worker ADDRESS RANK``: one of phase 31's two processes on
+    cuda:0, joined by ``distributed.initialize`` (gloo): cfg1's sharded scan
+    and cfg5d's sharded solve over a 2-slot mesh (one slot a process),
+    each gathered result bit for bit this process's single-device call;
+    prints ``OK process RANK`` and a JSON line of times (host clock)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import inflatox_torch
+    from inflatox_torch import background
+    from inflatox_torch.consistency_conditions import GeneralisedAL
+    from inflatox_torch.parallel import distributed, make_mesh, sharded_scan
+
+    address, rank = argv[0], int(argv[1])
+    distributed.initialize(coordinator_address=address, num_processes=2, process_id=rank)
+    check(distributed.is_multi_host(), "the process group did not start")
+    device = torch.device("cuda", 0)
+    model, args = inflatox_torch.models.hyperinflation()
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    al = GeneralisedAL(art, device=device, validate_basis=False)
+    grid = make_mesh(("grid",), devices=[device])
+    check(grid.size == 2 and grid.multi_process, f"mesh {grid}")
+    n = MESH_CFG1_N
+
+    def scan():
+        return sharded_scan(al, args, DOC_EXTENT, (n, n), grid, output="f64")
+
+    maps = mesh_counted("two processes: sharded_scan", scan, "B1", 1)  # this rank's slot
+    single = np.stack(al.complete_analysis(args, *DOC_EXTENT, n, n, progress=False))
+    same_bits(maps, single, f"rank {rank}: sharded_scan cfg1")
+    f0 = np.random.default_rng(0).uniform(1.5, 2.5, (2, B_SOLVE)).T.copy()
+
+    def solve():
+        return background.solve_eom_batch(art, args, STEPS, f0, f0 * 0.0, solver="rkf",
+                                          return_time=True, mesh=grid, device=device)
+
+    rows, times = mesh_counted("two processes: solve_eom_batch", solve, "B6", 1)
+    want = background.solve_eom_batch(art, args, STEPS, f0, f0 * 0.0, solver="rkf",
+                                      return_time=True, device=device)
+    same_bits(rows, want[0], f"rank {rank}: solve rows")
+    same_bits(times, want[1], f"rank {rank}: solve times")
+    result = {
+        "rank": rank,
+        "scan_ms": host_clock_ms(scan),
+        "scan_unsharded_ms": host_clock_ms(lambda: al.complete_analysis(
+            args, *DOC_EXTENT, n, n, progress=False)),
+        "solve_ms": host_clock_ms(solve),
+        "solve_unsharded_ms": host_clock_ms(lambda: background.solve_eom_batch(
+            art, args, STEPS, f0, f0 * 0.0, solver="rkf", return_time=True, device=device)),
+        "bit_identical": True,
+    }
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"OK process {rank}")
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3727,6 +4150,12 @@ def main() -> int:
           f"paths: none (B1-B8 counts unchanged); the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print("phase 30 summary: " + json.dumps(posterior))
+    # 31. many devices: meshes of the parallel package on the card
+    t_phase31 = time.perf_counter()
+    meshes = mesh_phase(art, args, al, egno, egno_args, quad, post_art, rkf, pts, device, card)
+    print(f"phase 31 on {card}: {time.perf_counter() - t_phase31:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print("phase 31 summary: " + json.dumps(meshes))
     if parent_jobs:
         parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
             k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)
@@ -3769,6 +4198,12 @@ if __name__ == "__main__":
         sys.exit(sweep_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--trace-worker"]:
         sys.exit(trace_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dist-worker"]:
+        try:
+            sys.exit(dist_worker(sys.argv[2:]))
+        except SmokeFailure as e:
+            print(f"chip_smoke --dist-worker: FAILED: {e}", flush=True)
+            sys.exit(1)
     try:
         code = main()
     except SmokeFailure as e:

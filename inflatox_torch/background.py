@@ -23,8 +23,11 @@ hand-written CUDA solver, on a CUDA device, or its plain PyTorch version.
 Devices are explicit: every entry takes ``device="cuda"`` by default and
 ``engine=None`` (``"cuda"`` on a CUDA device, ``"torch"`` on a CPU device),
 ``"cuda"`` or ``"torch"``.  ``solver="rkf"`` and ``"rk4"`` both run in the
-kernel.  One divergence from the JAX package: an attempt with a non-finite
-dt is accepted (the JAX while loop never ends there; see
+kernel.  ``mesh=`` (a :func:`~inflatox_torch.parallel.make_mesh` mesh)
+splits a batch over the mesh's first axis, one launch a slot
+(:func:`~inflatox_torch.parallel.sharded_solve_eom_batch`); the mesh then
+decides the devices.  One divergence from the JAX package: an attempt with a
+non-finite dt is accepted (the JAX while loop never ends there; see
 ``csrc/solver.cuh``).
 """
 
@@ -35,18 +38,15 @@ import torch
 
 from .compiler import CompiledModel
 from .ops.cuda_solver import solve_cuda, solve_torch
+from .parallel.mesh import check_mesh_device
+from .parallel.solve import sharded_solve_eom_batch
 from .utils.devices import resolve_device, resolve_engine
 from .utils.errors import ShapeError
 
 __all__ = ["solve_eom", "solve_eom_batch", "survey_initial_conditions", "efolds"]
 
 
-def _check_solver(solver, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding a batch over devices) is not ported yet: "
-            "ROADMAP §A.7 brings it with torch.distributed"
-        )
+def _check_solver(solver):
     if solver == "rkf_pallas":
         raise ValueError(
             'solver="rkf_pallas" is the JAX package\'s TPU kernel; in the '
@@ -138,7 +138,7 @@ def solve_eom(
             (artifact.n_parameters,), pars.shape,
             f'model "{artifact.model_name}" has {artifact.n_parameters} parameters',
         )
-    _check_solver(solver, None)
+    _check_solver(solver)
     device = resolve_device(device)
     engine = resolve_engine(engine, device, "kernel B6")
     rows, times = _solve_batch_device(
@@ -173,12 +173,22 @@ def solve_eom_batch(
     device, the plain PyTorch version on a CPU device; ``"cuda"`` — kernel
     B6; ``"torch"`` — the plain version on any device.  ``solver``:
     ``"rk4"`` or ``"rkf"`` (``"rkf_pallas"``, the JAX package's TPU kernel,
-    raises: ``"rkf"`` runs kernel B6).  ``mesh=`` raises
-    ``NotImplementedError`` (ROADMAP §A.7)."""
+    raises: ``"rkf"`` runs kernel B6).  ``mesh=``: a
+    :func:`~inflatox_torch.parallel.make_mesh` mesh, over whose first axis
+    the batch is split (one launch a slot, each trajectory bit for bit the
+    unsharded launch's); its devices take the place of ``device``, which
+    must name their type.  Anything but a mesh raises ``TypeError``."""
     pars, fields_init, derivatives_init = _check_batch(
         artifact, pars, fields_init, derivatives_init
     )
-    _check_solver(solver, mesh)
+    _check_solver(solver)
+    if mesh is not None:
+        check_mesh_device(mesh, device)
+        return sharded_solve_eom_batch(
+            artifact, pars, steps, fields_init, derivatives_init, mesh,
+            solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
+            return_time=return_time, engine=engine,
+        )
     device = resolve_device(device)
     engine = resolve_engine(engine, device, "kernel B6")
     rows, times = _solve_batch_device(
@@ -258,7 +268,9 @@ def survey_initial_conditions(
     interpolated), whether inflation ends inside the integrated span, and
     the crossing's H and field point.  ``pars`` is (k,) shared or (B, k)
     per-trajectory.  The batch runs in ``chunk``-sized solves; only the
-    (B,) summaries cross to the host.
+    (B,) summaries cross to the host.  With ``mesh=`` each chunk's solve is
+    split over the mesh's first axis and its rows are joined on the mesh's
+    first device, where the summaries are reduced.
 
     Returns a dict of (B,) numpy arrays: ``N_inflation`` (NaN where
     inflation never happens or never ends), ``ended`` (bool), ``H_end``,
@@ -275,18 +287,29 @@ def survey_initial_conditions(
         artifact, pars, fields_init, derivatives_init
     )
     solver = "rkf" if solver is None else solver
-    _check_solver(solver, mesh)
-    device = resolve_device(device)
-    engine = resolve_engine(engine, device, "kernel B6")
+    _check_solver(solver)
+    if mesh is not None:
+        check_mesh_device(mesh, device)
+        device = mesh.home
+    else:
+        device = resolve_device(device)
+        engine = resolve_engine(engine, device, "kernel B6")
 
     outs = []
     for c0 in range(0, B, int(chunk)):
         sl = slice(c0, min(B, c0 + int(chunk)))
         p_c = pars if pars.ndim == 1 else pars[sl]
-        rows, times = _solve_batch_device(
-            artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
-            max_err, solver, device, engine,
-        )
+        if mesh is not None:
+            rows, times = sharded_solve_eom_batch(
+                artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
+                solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
+                combine="device", engine=engine,
+            )
+        else:
+            rows, times = _solve_batch_device(
+                artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
+                max_err, solver, device, engine,
+            )
         p_t = torch.as_tensor(p_c, dtype=torch.float64, device=device)
         outs.append([v.cpu().numpy() for v in _survey_reduce(artifact, rows, times, p_t)])
     n_inf, ended, h_end, x_end, n_span = (

@@ -39,6 +39,11 @@
 // explicit round-to-nearest add and multiply, so nvcc cannot contract them
 // into an FMA: they equal the plain version's bit for bit
 // (inflatox_torch/ops/grid.py).  dx0 = (x0b - x0a)/n0 comes from the host.
+// A launch may scan rows row0 .. row0 + n0 - 1 of a larger grid
+// (inflx_grid_scan_rows, a sharded scan's shard): row i's coordinate is
+// x0a + (row0 + i)*dx0 with the whole grid's x0a and dx0, the same bits as
+// that row of the whole scan (a local start x0a + row0*dx0 would round
+// otherwise).
 //
 // Kernels B7a, B7b and B7d are B1, B2 and B4 over a batch of S parameter
 // sets (inflx_grid_scan_batch): the set is a third grid axis, and one
@@ -316,7 +321,7 @@ __host__ __device__ constexpr int inflx_n_out(int kind) {
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
-                 double x0a, double dx0, double x1a, double dx1,
+                 double x0a, double dx0, double x1a, double dx1, int64_t row0,
                  int64_t n0, int64_t n1, int64_t set_stride) {
   typedef inflx_layout<KIND> L;
   static_assert(L::n_fns * 32 <= kThreads, "a warp for each function's row stage");
@@ -335,7 +340,7 @@ grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
   for (int64_t i0 = (int64_t)blockIdx.y * kRows; i0 < n0; i0 += (int64_t)gridDim.y * kRows) {
     if (lane < kRows && i0 + lane < n0) {
       coord_t xr[2];
-      xr[0] = inflx_coord(x0a, dx0, i0 + lane);
+      xr[0] = inflx_coord(x0a, dx0, row0 + i0 + lane);
       xr[1] = x[1];
       inflx_row_stage<KIND>(threadIdx.x / 32, xr, p, rows[lane]);
     }
@@ -343,7 +348,7 @@ grid_scan_kernel(const real_t* __restrict__ p_sets, real_t* __restrict__ out,
     if (j < n1) {
       const int n_rows = n0 - i0 < kRows ? (int)(n0 - i0) : kRows;
       for (int k = 0; k < n_rows; ++k) {
-        x[0] = inflx_coord(x0a, dx0, i0 + k);
+        x[0] = inflx_coord(x0a, dx0, row0 + i0 + k);
         const inflx_staged<KIND> m = {x, p, rows[k], c};
         inflx_evaluate<KIND>(m, out + (i0 + k) * n1 + j, plane);
       }
@@ -523,14 +528,15 @@ int inflx_precision() { return INFLX_PRECISION; }
 // The most sets one inflx_grid_scan_batch call takes.
 int64_t inflx_max_sets() { return kMaxSets; }
 
-// Launch one scan of each of n_sets (1 .. inflx_max_sets()) parameter sets
-// on `stream`; returns cudaGetLastError() (0 on success).  p: (n_sets,
+// Launch one scan of rows row0 .. row0 + n0 - 1 of the grid x0a + i*dx0,
+// x1a + j*dx1 for each of n_sets (1 .. inflx_max_sets()) parameter sets on
+// `stream`; returns cudaGetLastError() (0 on success).  p: (n_sets,
 // n_params) real_t on the device (null when n_params is 0); out: (n_sets,
 // n_out, n0, n1) real_t on the device (real_t: float for f32, else double).
-int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
-                          double dx0, double x1a, double dx1, int64_t n0,
-                          int64_t n1, int64_t n_sets, void* stream) {
-  if (n0 <= 0 || n1 <= 0 || n_sets <= 0 || n_sets > kMaxSets)
+int inflx_grid_scan_rows(int kind, const void* p, void* out, double x0a,
+                         double dx0, double x1a, double dx1, int64_t row0,
+                         int64_t n0, int64_t n1, int64_t n_sets, void* stream) {
+  if (row0 < 0 || n0 <= 0 || n1 <= 0 || n_sets <= 0 || n_sets > kMaxSets)
     return (int)cudaErrorInvalidValue;
   const dim3 block(kThreads);
   const int64_t row_blocks = (n0 + kRows - 1) / kRows;
@@ -542,7 +548,7 @@ int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
   real_t* po = (real_t*)out;
 #define INFLX_GRID(K)                                                     \
   grid_scan_kernel<K><<<grid, block, 0, s>>>(pp, po, x0a, dx0, x1a, dx1, \
-                                             n0, n1, inflx_n_out(K) * n0 * n1)
+                                             row0, n0, n1, inflx_n_out(K) * n0 * n1)
   switch (kind) {
 #ifndef INFLX_POINTS_ONLY  // scripts/probe_grid_stages.py's point-kernel trials
     INFLX_ANALYSIS_CASES(INFLX_GRID)
@@ -555,6 +561,14 @@ int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
   }
 #undef INFLX_GRID
   return (int)cudaGetLastError();
+}
+
+// The whole grid (rows 0 .. n0 - 1) for each of n_sets parameter sets.
+int inflx_grid_scan_batch(int kind, const void* p, void* out, double x0a,
+                          double dx0, double x1a, double dx1, int64_t n0,
+                          int64_t n1, int64_t n_sets, void* stream) {
+  return inflx_grid_scan_rows(kind, p, out, x0a, dx0, x1a, dx1, 0, n0, n1,
+                              n_sets, stream);
 }
 
 // Launch one scan on `stream` (the batch of one); p: n_params real_t on the

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .observables import slow_roll
+from .parallel.mesh import check_mesh_device, gather_shards, launch_shards
 from .utils.devices import resolve_device
 from .utils.logging import log_warn
 
@@ -380,6 +381,30 @@ def _nuts_kernel(density, max_depth=8, max_delta_energy=1000.0):
 # ----------------------------------------------------------------------- #
 
 
+def _chains_over(mesh, kernel, chains):
+    """``kernel`` (a transition of :func:`_hmc_kernel`'s contract) with the
+    chains split over every slot of ``mesh``: slot i runs the transition on
+    its block of chains (and of the random block) on its device, and the
+    blocks are joined on the mesh's first device."""
+    slots = mesh.all_slots()
+    if chains % len(slots):
+        raise ValueError(
+            f"num_chains = {chains} must be a multiple of the mesh size {len(slots)}"
+        )
+    per = chains // len(slots)
+
+    def sharded(q, lp, g, draws, eps, inv_mass):
+        def launch(i, device):
+            sl = slice(i * per, (i + 1) * per)
+            return kernel(q[sl].to(device), lp[sl].to(device), g[sl].to(device),
+                          tuple(x[sl].to(device) for x in draws), eps.to(device),
+                          inv_mass.to(device))
+
+        return gather_shards(mesh, launch_shards(mesh, slots, launch, False))
+
+    return sharded
+
+
 def sample_posterior(
     logp: Callable,
     x0,
@@ -416,8 +441,16 @@ def sample_posterior(
     by default; on a host without CUDA that raises — pass ``"cpu"``), the
     adaptation state stays there, and the draws come back to numpy once,
     at the end.  ``seed`` seeds the one ``torch.Generator`` of the run.
-    ``mesh=`` (sharding the chains over devices) is not ported yet and
-    raises.
+
+    ``mesh=`` (a :func:`~inflatox_torch.parallel.make_mesh` mesh, whose
+    devices take the place of ``device``, which must name their type)
+    splits the chains over every slot of the mesh: ``num_chains`` must be a
+    multiple of the mesh size.  Each transition's random block is still
+    drawn once, for all chains, from the one generator on the mesh's first
+    device, and its rows go to the slots; each slot runs the transition on
+    its chains on its device, and the chains come back to the first device,
+    where dual averaging takes their mean in the unsharded order.  So for
+    the same ``seed`` a sharded run gives the unsharded draws.
 
     ``algorithm="nuts"`` swaps the fixed-length kernel for the No-U-Turn
     sampler (:func:`_nuts_kernel`): trajectory lengths adapt per
@@ -432,7 +465,7 @@ def sample_posterior(
     """
     if not 0.0 < target_accept < 1.0:
         raise ValueError(f"target_accept must be in (0, 1), got {target_accept}")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else check_mesh_device(mesh, device).home
     x0 = torch.atleast_2d(torch.as_tensor(x0, dtype=_F64, device=device))
     d = x0.shape[-1]
     gen = torch.Generator(device=device)
@@ -463,10 +496,7 @@ def sample_posterior(
         raise ValueError(
             f'algorithm must be "hmc" or "nuts", got {algorithm!r}')
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding the chains over devices) is not ported yet: "
-            "ROADMAP §A.7 brings it with torch.distributed"
-        )
+        kernel = _chains_over(mesh, kernel, chains)
 
     # dual-averaging constants (Hoffman & Gelman 2014, §3.2); warmup budget
     # splits 3:1 between the unit-mass window (mass estimated from its

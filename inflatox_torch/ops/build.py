@@ -137,6 +137,21 @@ def _bind_grid_scan(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,    # cudaStream_t
     ]
     lib.inflx_grid_scan_batch.restype = ctypes.c_int
+    lib.inflx_grid_scan_rows.argtypes = [
+        ctypes.c_int,       # kind
+        ctypes.c_void_p,    # params, (S, n_params) (device)
+        ctypes.c_void_p,    # out, (S, n_out, n0, n1) (device)
+        ctypes.c_double,    # x0a
+        ctypes.c_double,    # dx0
+        ctypes.c_double,    # x1a
+        ctypes.c_double,    # dx1
+        ctypes.c_int64,     # row0: the global index of the first row
+        ctypes.c_int64,     # n0: rows scanned
+        ctypes.c_int64,     # n1
+        ctypes.c_int64,     # S
+        ctypes.c_void_p,    # cudaStream_t
+    ]
+    lib.inflx_grid_scan_rows.restype = ctypes.c_int
     lib.inflx_max_sets.argtypes = []
     lib.inflx_max_sets.restype = ctypes.c_int64
     lib.inflx_points_scan.argtypes = [

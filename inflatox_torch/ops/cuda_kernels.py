@@ -150,7 +150,9 @@ def _check_model(artifact, kind, args, precision, kinds=KINDS, batch=False):
     return args
 
 
-def _check(artifact, kind, args, extent, shape, precision, batch=False):
+def _check(artifact, kind, args, extent, shape, precision, batch=False, rows=None):
+    """Checked (args, extent, shape, rows); ``rows`` None becomes the whole
+    grid's (0, N0)."""
     args = _check_model(artifact, kind, args, precision, batch=batch)
     extent = tuple(float(v) for v in extent)
     if len(extent) != 4 or not all(math.isfinite(v) for v in extent):
@@ -160,7 +162,11 @@ def _check(artifact, kind, args, extent, shape, precision, batch=False):
     shape = (int(shape[0]), int(shape[1]))
     if shape[0] <= 0 or shape[1] <= 0:
         raise ValueError(f"shape must be positive, got {shape}")
-    return args, extent, shape
+    rows = (0, shape[0]) if rows is None else (int(rows[0]), int(rows[1]))
+    if rows[0] < 0 or rows[1] <= 0 or rows[0] + rows[1] > shape[0]:
+        raise ValueError(f"rows (first, count) must lie within the {shape[0]} rows of the "
+                         f"grid, got {rows}")
+    return args, extent, shape, rows
 
 
 def _params(args: np.ndarray, device: torch.device, precision: str = "f64") -> torch.Tensor:
@@ -240,28 +246,33 @@ def _evaluate(potential, grad_square, grad, hesse, kind, xs, p, shape, dtype, de
     return torch.stack(outs, dim=ndim - 1)
 
 
-def scan_torch(artifact, kind, args, extent, shape, device, precision: str = "f64") -> torch.Tensor:
+def scan_torch(artifact, kind, args, extent, shape, device, precision: str = "f64",
+               rows=None) -> torch.Tensor:
     """Plain PyTorch version of kernels B1, B2 and B4: one scan kind over
     the endpoint-exclusive grid ``extent = (x0a, x0b, x1a, x1b)`` of
-    ``shape = (N0, N1)`` points, on ``device``, in ``precision``.  Returns
-    an (n_out, N0, N1) tensor (float32 for ``"f32"``, else float64)."""
-    args, extent, shape = _check(artifact, kind, args, extent, shape, precision)
+    ``shape = (N0, N1)`` points, on ``device``, in ``precision``; ``rows =
+    (first, count)`` scans only those rows of the grid, with the whole
+    grid's coordinates (:func:`~inflatox_torch.ops.grid.grid_coords`).
+    Returns an (n_out, N0, N1) tensor (``count`` rows for ``rows``; float32
+    for ``"f32"``, else float64)."""
+    args, extent, shape, rows = _check(artifact, kind, args, extent, shape, precision,
+                                       rows=rows)
     device = torch.device(device)
     xs = grid_coords(((extent[0], extent[1]), (extent[2], extent[3])), shape, device,
-                     precision)
+                     precision, rows)
     return evaluate_points(artifact, kind, args, xs, precision)
 
 
 def scan_batch_torch(artifact, kind, args_batch, extent, shape, device,
-                     precision: str = "f64") -> torch.Tensor:
+                     precision: str = "f64", rows=None) -> torch.Tensor:
     """Plain PyTorch version of kernels B7a, B7b and B7d: :func:`scan_torch`
     for each row of the (S, k) ``args_batch`` at once, on ``device``.
     Returns an (S, n_out, N0, N1) tensor."""
-    args_batch, extent, shape = _check(artifact, kind, args_batch, extent, shape, precision,
-                                       batch=True)
+    args_batch, extent, shape, rows = _check(artifact, kind, args_batch, extent, shape,
+                                             precision, batch=True, rows=rows)
     device = torch.device(device)
     xs = grid_coords(((extent[0], extent[1]), (extent[2], extent[3])), shape, device,
-                     precision)
+                     precision, rows)
     return evaluate_points(artifact, kind, args_batch, xs, precision)
 
 
@@ -274,26 +285,30 @@ def _library(artifact, precision):
     return lib
 
 
-def _launch_grid(artifact, kind, args_batch, extent, shape, device, precision, kernel):
+def _launch_grid(artifact, kind, args_batch, extent, shape, rows, device, precision,
+                 kernel):
     """Build (first use) and launch the grid-scan kernel for the rows of the
     (S, k) ``args_batch`` on the current stream of the CUDA ``device``, once
     per ``inflx_max_sets()`` sets, counting each launch under ``kernel``;
-    returns the (S, n_out, N0, N1) output.  A launch error raises."""
+    returns the (S, n_out, count, N1) output of grid rows ``rows = (first,
+    count)``, each row at its global index (row0 = first).  A launch error
+    raises."""
     lib = _library(artifact, precision)
     kind_id, n_out = KINDS[kind]
     x0a, x0b, x1a, x1b = extent
     n0, n1 = shape
+    row0, count = rows
     n_sets = args_batch.shape[0]
     dtype = torch.float32 if precision == "f32" else torch.float64
     max_sets = lib.inflx_max_sets()
     with torch.cuda.device(device):
         p = _params(args_batch, device, precision)
-        out = torch.empty((n_sets, n_out, n0, n1), dtype=dtype, device=device)
+        out = torch.empty((n_sets, n_out, count, n1), dtype=dtype, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         for lo in range(0, n_sets, max_sets):
-            err = lib.inflx_grid_scan_batch(
+            err = lib.inflx_grid_scan_rows(
                 kind_id, p[lo].data_ptr() if p.numel() else None, out[lo].data_ptr(),
-                x0a, (x0b - x0a) / n0, x1a, (x1b - x1a) / n1, n0, n1,
+                x0a, (x0b - x0a) / n0, x1a, (x1b - x1a) / n1, row0, count, n1,
                 min(max_sets, n_sets - lo), stream,
             )
             if err != 0:
@@ -311,10 +326,13 @@ def _wrapper_device(device, wrapper):
     return device
 
 
-def scan_cuda(artifact, kind, args, extent, shape, device, precision: str = "f64") -> torch.Tensor:
+def scan_cuda(artifact, kind, args, extent, shape, device, precision: str = "f64",
+              rows=None) -> torch.Tensor:
     """The wrapper of kernels B1 (``precision="f64"``), B2 (``"f32"``) and
     B4 (``"dd"``): one scan kind over the endpoint-exclusive grid ``extent =
-    (x0a, x0b, x1a, x1b)`` of ``shape = (N0, N1)`` points.
+    (x0a, x0b, x1a, x1b)`` of ``shape = (N0, N1)`` points; ``rows = (first,
+    count)`` scans only those rows, bit for bit the same rows of the whole
+    scan (a sharded scan's shard).
 
     On a CUDA device it builds the kernel for the model and precision
     (first use), makes the parameter tensor, allocates one (n_out, N0, N1)
@@ -322,16 +340,17 @@ def scan_cuda(artifact, kind, args, extent, shape, device, precision: str = "f64
     launches on the current stream without synchronising (the batched
     kernel's launch for one set); a launch error raises.  On a CPU device it
     returns :func:`scan_torch`'s result and launches nothing."""
-    args, extent, shape = _check(artifact, kind, args, extent, shape, precision)
+    args, extent, shape, rows = _check(artifact, kind, args, extent, shape, precision,
+                                       rows=rows)
     device = _wrapper_device(device, "scan_cuda")
     if device.type == "cpu":
-        return scan_torch(artifact, kind, args, extent, shape, device, precision)
-    return _launch_grid(artifact, kind, args[None], extent, shape, device, precision,
+        return scan_torch(artifact, kind, args, extent, shape, device, precision, rows)
+    return _launch_grid(artifact, kind, args[None], extent, shape, rows, device, precision,
                         PRECISIONS[precision].grid_kernel)[0]
 
 
 def scan_batch_cuda(artifact, kind, args_batch, extent, shape, device,
-                    precision: str = "f64") -> torch.Tensor:
+                    precision: str = "f64", rows=None) -> torch.Tensor:
     """The wrapper of kernels B7a (``precision="f64"``), B7b (``"f32"``)
     and B7d (``"dd"``): one scan kind over the endpoint-exclusive grid
     ``extent = (x0a, x0b, x1a, x1b)`` of ``shape = (N0, N1)`` points for each
@@ -344,12 +363,13 @@ def scan_batch_cuda(artifact, kind, args_batch, extent, shape, device,
     synchronising, once per 65535 sets (a launch takes at most that many);
     a launch error raises.  On a CPU device it returns
     :func:`scan_batch_torch`'s result and launches nothing."""
-    args_batch, extent, shape = _check(artifact, kind, args_batch, extent, shape, precision,
-                                       batch=True)
+    args_batch, extent, shape, rows = _check(artifact, kind, args_batch, extent, shape,
+                                             precision, batch=True, rows=rows)
     device = _wrapper_device(device, "scan_batch_cuda")
     if device.type == "cpu":
-        return scan_batch_torch(artifact, kind, args_batch, extent, shape, device, precision)
-    return _launch_grid(artifact, kind, args_batch, extent, shape, device, precision,
+        return scan_batch_torch(artifact, kind, args_batch, extent, shape, device, precision,
+                                rows)
+    return _launch_grid(artifact, kind, args_batch, extent, shape, rows, device, precision,
                         PRECISIONS[precision].batch_kernel)
 
 

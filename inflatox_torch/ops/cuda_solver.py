@@ -71,6 +71,17 @@ METHODS = {"rkf": (0, 6), "rk4": (1, 4)}
 #: number of kernel launches made by :func:`solve_cuda` in this process
 LAUNCHES = 0
 
+#: on the CPU the plain version pads its batch to whole multiples of this
+#: many trajectories (copies of the last): torch's CPU kernels run a
+#: tensor's elements past its last whole pair of SIMD vectors through the
+#: scalar libm, whose pow (and exp, log, ...) may round a last bit otherwise
+#: than the vectorised one, so a trajectory's bits would depend on its place
+#: in the batch (and a sharded solve's blocks, ``parallel/solve.py``, would
+#: differ from the whole batch).  16 is two AVX-512 vectors of f64.  Tensors
+#: past torch's parallel grain (32,768 elements) split over threads at
+#: other boundaries.
+_CPU_LANES = 16
+
 
 def derivative(artifact, y, args) -> torch.Tensor:
     """y' for the (2n+1, B) state y = [φ, χ, H]: φ' = χ,
@@ -164,10 +175,22 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
     (k,) shared or (B, k) per-trajectory parameters, on the same device.
     Returns ``(rows, times)`` — (B, steps, 2n+1) and (B, steps) — and, with
     ``count_attempts=True``, also the (B,) number of attempts each
-    trajectory made over its steps − 1 rows."""
+    trajectory made over its steps − 1 rows.  On the CPU each trajectory's
+    arithmetic does not depend on its place in the batch (``_CPU_LANES``)."""
+    _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver)
+    batch = fields_init.shape[0]
+    pad = -batch % _CPU_LANES if fields_init.device.type == "cpu" else 0
+    if pad:
+        def padded(t):
+            return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+
+        fields_init, derivatives_init = padded(fields_init), padded(derivatives_init)
+        if pars.ndim == 2:
+            pars = padded(pars)
     with suppress_domain_warnings():
-        return _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err,
-                            solver, count_attempts)
+        out = _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err,
+                           solver, count_attempts)
+    return tuple(o[:batch] for o in out) if pad else out
 
 
 def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, solver,

@@ -36,9 +36,18 @@ Bunch-Davies amplitude and the amplitude is folded into the read-out.
 Conventions: reduced Planck units (M_Pl = 1); P_ζ is the dimensionless
 spectrum (single-field slow-roll limit H²/(8π²ε)); ln k = N + ln H at
 crossing with N normalized to the supplied trajectory's start (only Δln k
-is physical).  ``mesh=`` raises ``NotImplementedError`` (ROADMAP §A.7);
-``pivot_axis`` is accepted and ignored, as in the JAX package without a
-mesh.
+is physical).
+
+``mesh=`` (a :func:`~inflatox_torch.parallel.make_mesh` mesh) decides the
+devices, as the JAX package's does: the δN routes split their solves over
+its first axis (:func:`~inflatox_torch.parallel.sharded_solve_eom_batch`),
+and the mode and transport routes split their pivot axis over the mesh
+axis ``pivot_axis`` (default the first), padded by repeating the last pivot
+and trimmed after the loops, each slot running the RK4 loops on its pivots
+(the counterpart of the JAX package's ``_pivot_shard``); the rest runs on
+the mesh's first device.  One host thread drives every slot, so a mesh of
+k slots launches k times what one loop over 1/k of the pivots launches.
+Without a mesh ``pivot_axis`` is ignored, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 
 from . import background
 from .observables import _eps1_crossing, _trajectory_eps_h
+from .parallel.mesh import check_mesh_device, gather_shards, launch_shards
 from .utils.devices import resolve_device
 from .utils.errors import ShapeError
 from .utils.logging import log_warn
@@ -65,12 +75,49 @@ __all__ = [
 ]
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharding the trajectories or pivots over devices) is not "
-            "ported yet: ROADMAP §A.7 brings it with torch.distributed"
-        )
+def _placement(mesh, device) -> torch.device:
+    """Where a spectrum route's model evaluations run: ``device``, or with a
+    mesh (which must be of ``device``'s type) the mesh's first device."""
+    if mesh is None:
+        return resolve_device(device)
+    return check_mesh_device(mesh, device).home
+
+
+def _mesh_kw(mesh) -> dict:
+    """The ``mesh=`` of a route's solves, passed only when there is one (as
+    the JAX package's ``mesh_kw``)."""
+    return {} if mesh is None else {"mesh": mesh}
+
+
+def _pivot_shards(mesh, pivot_axis, total_k, run) -> tuple:
+    """The host (numpy) results of ``run(idx, dev)``, a tuple of tensors
+    with the pivot axis leading: without a mesh ``run(None, None)`` (every
+    pivot where its inputs lie); with one, each slot of ``pivot_axis``
+    (default the mesh's first axis) runs its block of the pivot axis padded
+    to the axis by repeating the last pivot (``idx``, a LongTensor of pivot
+    indices), on its device, and the blocks are joined and trimmed to
+    ``total_k``."""
+    if mesh is None:
+        return tuple(_host(t) for t in run(None, None))
+    slots = mesh.axis_slots(pivot_axis if pivot_axis is not None else mesh.axis_names[0])
+    local = -(-int(total_k) // len(slots))
+
+    def launch(i, device):
+        idx = torch.arange(i * local, (i + 1) * local).clamp(max=int(total_k) - 1)
+        return run(idx, device)
+
+    out = gather_shards(mesh, launch_shards(mesh, slots, launch, True))
+    return tuple(o[:int(total_k)] for o in out)
+
+
+def _pick(value, dim, idx, device):
+    """``value`` (a tensor, or a tuple of them) at the pivot indices ``idx``
+    along ``dim``, on ``device``; itself for ``idx`` None."""
+    if idx is None:
+        return value
+    if isinstance(value, tuple):
+        return tuple(_pick(v, dim, idx, device) for v in value)
+    return value.index_select(dim, idx.to(value.device)).to(device)
 
 
 def _tensor(value, device) -> torch.Tensor:
@@ -430,8 +477,7 @@ def delta_n_spectrum(
     order = int(order)
     if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order}")
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     d = artifact.n_fields
     rows, times, hubble, eps_h, n_axis, i, n_end, h_ref = _base_quantities(
         artifact, args, rows, times, device
@@ -449,7 +495,7 @@ def delta_n_spectrum(
     a_f = np.asarray(args, dtype=float)
     rows_b, times_b = background.solve_eom_batch(
         artifact, a_f, int(steps), f0, chi0,
-        max_err=max_err, solver=solver, return_time=True, device=device,
+        max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
     )
     n_surface, _ = _dn_surface(artifact, a_f, rows_b, times_b, h_ref, steps,
                                device)
@@ -518,8 +564,7 @@ def delta_n_sweep(
     order = int(order)
     if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order}")
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     if pivot_N_before_end is not None:
         pivots = len(np.atleast_1d(pivot_N_before_end))
     d = artifact.n_fields
@@ -539,7 +584,7 @@ def delta_n_sweep(
     # quantities (ε_H, e-fold axis) vectorized over the whole batch
     rows_base, times_base = background.solve_eom_batch(
         artifact, pars, int(steps), f0b, chi0b,
-        max_err=max_err, solver=solver, return_time=True, device=device,
+        max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
     )
     chi_sq = _inner_prod_rows(artifact, pars, rows_base, device)
     hub_base = rows_base[..., -1]
@@ -587,7 +632,7 @@ def delta_n_sweep(
             artifact, pars_all, int(steps),
             np.concatenate([sets[s_i][6] for s_i in valid]),
             np.concatenate([sets[s_i][7] for s_i in valid]),
-            max_err=max_err, solver=solver, return_time=True, device=device,
+            max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
         )
         n_surf, ok_traj = _dn_surface(
             artifact, pars_all, rows_b, times_b,
@@ -720,8 +765,7 @@ def squeezed_fnl(
     (``P_zeta_short`` is the ± average over the stencil universes — the
     base value up to O(h²)).
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     d = artifact.n_fields
     a_f = np.asarray(args, dtype=float)
     rows, times, hubble, eps_h, n_axis, i, n_end, h_ref = _base_quantities(
@@ -766,7 +810,7 @@ def squeezed_fnl(
     f0, chi0, per_pivot, h_a, _ = _dn_stencil(x_l, chi_l, h, h, order=1)
     rows_b, times_b = background.solve_eom_batch(
         artifact, a_f, int(steps), f0, chi0,
-        max_err=max_err, solver=solver, return_time=True, device=device,
+        max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
     )
     hdot_b, n_b = _batch_hdot_efolds(artifact, a_f, rows_b, times_b, device)
     n_surf, _ = _dn_surface(artifact, a_f, rows_b, times_b, h_ref, steps,
@@ -815,7 +859,7 @@ def squeezed_fnl(
     rows_s, times_s = background.solve_eom_batch(
         artifact, a_f, int(steps), np.concatenate(f0_s),
         np.concatenate(chi0_s),
-        max_err=max_err, solver=solver, return_time=True, device=device,
+        max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
     )
     n_surf_s, _ = _dn_surface(
         artifact, a_f, rows_s, times_s, np.concatenate(href_s), steps, device,
@@ -1223,20 +1267,24 @@ def mode_spectrum(
     Accuracy budget: massless Bunch-Davies truncation ~1/y₀² ≈ 3·10⁻⁴ at
     the default ``N_sub=4`` plus RK4 phase error ~10⁻³ at the default step
     counts — agreement with δN to ~1% is the validated envelope.
-    ``mesh=`` raises (ROADMAP §A.7); ``pivot_axis`` is ignored.
+    ``mesh=`` splits the pivots over the mesh axis ``pivot_axis`` (default
+    its first); see the module's docstring.
     """
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     t = _pivot_setup(
         artifact, args, rows, times, pivots, N_margin_start, N_margin_end,
         N_sub, N_dense, dense_steps, tail_steps, device,
         n_before_end=pivot_N_before_end,
     )
     streams, streams_t = _ms_streams(t)
-    final = _host(_ms_integrate(t.state0, streams))        # (K, 4, i, a)
-    # tensor modes: each polarization is a canonically-normalized massless
-    # scalar (no Γ, no mass matrix), P_T = 8 · P_massless
-    final_t = _host(_ms_integrate_t(_tensor(t.state0_t, device), streams_t))
+    state0_t = _tensor(t.state0_t, device)
+    # scalar modes (K, 4, i, a); tensor modes: each polarization is a
+    # canonically-normalized massless scalar (no Γ, no mass matrix), P_T =
+    # 8 · P_massless
+    final, final_t = _pivot_shards(mesh, pivot_axis, t.state0.shape[0], lambda idx, dev: (
+        _ms_integrate(_pick(t.state0, 0, idx, dev), _pick(streams, 1, idx, dev)),
+        _ms_integrate_t(_pick(state0_t, 0, idx, dev), _pick(streams_t, 1, idx, dev)),
+    ))
     return _mode_readout(t, final, final_t)
 
 
@@ -1300,11 +1348,12 @@ def _sweep_base_setups(
     artifact, pars, fields_init, derivatives_init, *,
     steps, max_err, solver, device, on_failure,
     pivots, N_margin_start, N_margin_end, N_sub, N_dense,
-    dense_steps, tail_steps, n_before_end=None,
+    dense_steps, tail_steps, n_before_end=None, mesh=None,
 ):
     """Shared sweep preamble of mode_sweep/transport_sweep: validate the
     parameter batch, solve every base trajectory in ONE batched solve
-    (one launch of kernel B6 on a CUDA device), and run
+    (one launch of kernel B6 on a CUDA device, one a slot with a ``mesh``),
+    and run
     :func:`_pivot_setup` per set with failure isolation.  Returns
     ``(pars, setups, failures)`` — a failed set has ``setups[s] = None``
     and its reason in ``failures[s]`` (or raised, under
@@ -1323,7 +1372,7 @@ def _sweep_base_setups(
     chi0b = np.broadcast_to(np.asarray(derivatives_init, dtype=float), (S, d)).copy()
     rows_base, times_base = background.solve_eom_batch(
         artifact, pars, int(steps), f0b, chi0b,
-        max_err=max_err, solver=solver, return_time=True, device=device,
+        max_err=max_err, solver=solver, return_time=True, device=device, **_mesh_kw(mesh),
     )
 
     setups = [None] * S
@@ -1410,8 +1459,7 @@ def mode_sweep(
     ``failures``.
     """
     _sweep_validate(on_failure, N_margin_start, N_margin_end, N_sub, N_dense)
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     if pivot_N_before_end is not None:
         pivots = len(np.atleast_1d(pivot_N_before_end))
     pars, setups, failures = _sweep_base_setups(
@@ -1421,7 +1469,7 @@ def mode_sweep(
         N_margin_start=N_margin_start, N_margin_end=N_margin_end,
         N_sub=N_sub, N_dense=N_dense,
         dense_steps=dense_steps, tail_steps=tail_steps,
-        n_before_end=pivot_N_before_end,
+        n_before_end=pivot_N_before_end, mesh=mesh,
     )
     S = pars.shape[0]
     valid = [s_i for s_i in range(S) if setups[s_i] is not None]
@@ -1434,14 +1482,13 @@ def mode_sweep(
                          for parts in zip(*[st[0] for st in streams]))
         per_step_t = tuple(torch.cat(parts, 1)
                            for parts in zip(*[st[1] for st in streams]))
-        final = _host(_ms_integrate(
-            torch.cat([setups[s_i].state0 for s_i in valid]), per_step,
-        ))                                                 # (ΣK, 4, i, a)
-        final_t = _host(_ms_integrate_t(
-            _tensor(np.concatenate([setups[s_i].state0_t for s_i in valid]),
-                    device),
-            per_step_t,
-        ))                                                 # (ΣK, 4)
+        state0 = torch.cat([setups[s_i].state0 for s_i in valid])
+        state0_t = _tensor(np.concatenate([setups[s_i].state0_t for s_i in valid]), device)
+        # (ΣK, 4, i, a) and (ΣK, 4)
+        final, final_t = _pivot_shards(mesh, pivot_axis, state0.shape[0], lambda idx, dev: (
+            _ms_integrate(_pick(state0, 0, idx, dev), _pick(per_step, 1, idx, dev)),
+            _ms_integrate_t(_pick(state0_t, 0, idx, dev), _pick(per_step_t, 1, idx, dev)),
+        ))
         for v, s_i in enumerate(valid):
             sl = slice(v * int(pivots), (v + 1) * int(pivots))
             outs[s_i] = _mode_readout(setups[s_i], final[sl], final_t[sl])
@@ -1559,13 +1606,13 @@ def _tr_integrate_all(ds, streams, sig0, sig0_t):
     dense segment (→ crossing surface), its continuation over the tail
     (→ end surface), and the massless tensor block.  ``streams`` are
     :func:`_tr_streams`' (possibly sweep-concatenated along the pivot axis,
-    dim 1); returns host numpy (Σ*, Σ_end, Σ_T)."""
+    dim 1); returns the tensors (Σ*, Σ_end, Σ_T) on their device."""
     u_n, u_m, u_t_n, u_t_m, dts = streams
     n_steps = dts.shape[0]
     sig_star = _tr_integrate(sig0, u_n, u_m, dts, 0, ds)
     sig_end = _tr_integrate(sig_star, u_n, u_m, dts, ds, n_steps)
     sig_t = _tr_integrate(sig0_t, u_t_n, u_t_m, dts, 0, n_steps)
-    return _host(sig_star), _host(sig_end), _host(sig_t)
+    return sig_star, sig_end, sig_t
 
 
 def _transport_readout(t, sig_star, sig_end, sig_t, d, ds):
@@ -1662,10 +1709,9 @@ def transport_spectrum(
     ``T_RS``, ``T_SS``, ``P_zeta_star``, ``P_iso_star`` (for d ≠ 2 T_RS is
     always the growth-based magnitude).  The three integrations (scalar
     dense segment, scalar tail, tensor block) are torch RK4 loops on
-    ``device``.  ``mesh=`` raises (ROADMAP §A.7); ``pivot_axis`` is
-    ignored."""
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    ``device``.  ``mesh=`` splits the pivots over the mesh axis
+    ``pivot_axis`` (default its first); see the module's docstring."""
+    device = _placement(mesh, device)
     t = _pivot_setup(
         artifact, args, rows, times, pivots, N_margin_start, N_margin_end,
         N_sub, N_dense, dense_steps, tail_steps, device,
@@ -1674,8 +1720,11 @@ def transport_spectrum(
     d = t.d
     ds = int(dense_steps)
     sig0, sig0_t = _tr_sigma0(t)
-    sig_star, sig_end, sig_t = _tr_integrate_all(ds, _tr_streams(t), sig0,
-                                                 sig0_t)
+    streams = _tr_streams(t)
+    sig_star, sig_end, sig_t = _pivot_shards(
+        mesh, pivot_axis, sig0.shape[0], lambda idx, dev: _tr_integrate_all(
+            ds, _pick(streams, 1, idx, dev), _pick(sig0, 0, idx, dev),
+            _pick(sig0_t, 0, idx, dev)))
     return _transport_readout(t, sig_star, sig_end, sig_t, d, ds)
 
 
@@ -1715,8 +1764,7 @@ def transport_sweep(
     ``failures``.
     """
     _sweep_validate(on_failure, N_margin_start, N_margin_end, N_sub, N_dense)
-    _no_mesh(mesh)
-    device = resolve_device(device)
+    device = _placement(mesh, device)
     if pivot_N_before_end is not None:
         pivots = len(np.atleast_1d(pivot_N_before_end))
     pars, setups, failures = _sweep_base_setups(
@@ -1726,7 +1774,7 @@ def transport_sweep(
         N_margin_start=N_margin_start, N_margin_end=N_margin_end,
         N_sub=N_sub, N_dense=N_dense,
         dense_steps=dense_steps, tail_steps=tail_steps,
-        n_before_end=pivot_N_before_end,
+        n_before_end=pivot_N_before_end, mesh=mesh,
     )
     S = pars.shape[0]
     valid = [s_i for s_i in range(S) if setups[s_i] is not None]
@@ -1739,10 +1787,12 @@ def transport_sweep(
             for parts in zip(*[_tr_streams(setups[s_i]) for s_i in valid])
         )
         sig0s = [_tr_sigma0(setups[s_i]) for s_i in valid]
-        sig_star, sig_end, sig_t = _tr_integrate_all(
-            ds, streams,
-            torch.cat([a for a, _ in sig0s]), torch.cat([b for _, b in sig0s]),
-        )
+        sig0 = torch.cat([a for a, _ in sig0s])
+        sig0_t = torch.cat([b for _, b in sig0s])
+        sig_star, sig_end, sig_t = _pivot_shards(
+            mesh, pivot_axis, sig0.shape[0], lambda idx, dev: _tr_integrate_all(
+                ds, _pick(streams, 1, idx, dev), _pick(sig0, 0, idx, dev),
+                _pick(sig0_t, 0, idx, dev)))
         for v, s_i in enumerate(valid):
             sl = slice(v * int(pivots), (v + 1) * int(pivots))
             outs[s_i] = _transport_readout(

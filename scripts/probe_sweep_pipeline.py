@@ -47,9 +47,20 @@ import inflatox_torch  # noqa: E402
 from inflatox_torch.consistency_conditions import GeneralisedAL  # noqa: E402
 from inflatox_torch.ops.cuda_kernels import scan_batch_cuda  # noqa: E402
 from inflatox_torch.parallel import parameter_sweep  # noqa: E402
-from inflatox_torch.parallel.sweep import _atomic_save, _stage  # noqa: E402
+from inflatox_torch.parallel.sweep import _atomic_save  # noqa: E402
 
 DOC_EXTENT = (0.5, 2.5, 0.25, 3.0)
+
+
+def _stage(out):
+    """A chunk's copy to the host, non-blocking into pinned memory behind an
+    event on the current stream: (host tensor, event)."""
+    with torch.cuda.device(out.device):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+    return host, event
 N = 512
 CKDIR = os.path.join(ROOT, "build", "pipeline_probe")
 

@@ -368,9 +368,9 @@ def test_jax_only_options_raise(models):
     with pytest.raises(ValueError, match="B6"):
         tb.survey_initial_conditions(art, args, 10, f0, [0.0, 0.0], solver="rkf_pallas",
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match=r"§A\.7"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tb.solve_eom_batch(art, args, 10, f0, d0, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"§A\.7"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tb.survey_initial_conditions(art, args, 10, f0, [0.0, 0.0], mesh=object(),
                                      device="cpu")
 

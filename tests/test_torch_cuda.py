@@ -722,3 +722,23 @@ def test_posterior_on_the_card_matches_the_cpu(quadratic, cuda_device):
         for a, b in zip(outs["cuda"][:4], outs["cpu"][:4]):
             _close(a.cpu().numpy(), b.numpy())
         assert torch.equal(outs["cuda"][4].cpu(), outs["cpu"][4]), name
+
+
+@pytest.mark.parametrize("precision", sorted(PRECISIONS))
+def test_sharded_scan_on_four_slots_of_one_card(doc, cuda_device, precision):
+    """``sharded_scan`` over four slots of cuda:0 at 256²: one launch a slot
+    (each row at its global index), bit for bit the unsharded scan."""
+    from inflatox_torch.parallel import make_mesh, sharded_scan
+
+    art, args = doc
+    al = GeneralisedAL(art, device=cuda_device, validate_basis=False)
+    mesh = make_mesh(("grid",), devices=[cuda_device] * 4)
+    kernel = PRECISIONS[precision].grid_kernel
+    before = cuda_kernels.LAUNCHES_BY_KERNEL[kernel]
+    got = sharded_scan(al, args, DOC_EXTENT, (256, 256), mesh, precision=precision)
+    assert cuda_kernels.LAUNCHES_BY_KERNEL[kernel] - before == 4
+    want = scan_cuda(art, "complete_analysis", args, DOC_EXTENT, (256, 256), cuda_device,
+                     precision)
+    assert got.device == cuda_device and got.shape == want.shape and got.dtype == want.dtype
+    bits = torch.int32 if precision == "f32" else torch.int64
+    assert torch.equal(got.view(bits), want.view(bits))

@@ -44,6 +44,9 @@ MODULES = [
     "inflatox_torch.ops.cuda_kernels",
     "inflatox_torch.ops.cuda_solver",
     "inflatox_torch.parallel",
+    "inflatox_torch.parallel.distributed",
+    "inflatox_torch.parallel.mesh",
+    "inflatox_torch.parallel.solve",
     "inflatox_torch.parallel.sweep",
     "inflatox_torch.perturbations",
     "inflatox_torch.symbolic",
@@ -89,6 +92,16 @@ def test_exported_names():
     for name in EXPORTS:
         assert hasattr(inflatox_torch, name), name
     assert inflatox_torch.CompilationArtifact is inflatox_torch.CompiledModel
+
+
+def test_parallel_exports_the_jax_packages_names():
+    import inflatox_torch.parallel as tpar
+    import inflatox_tpu.parallel as jpar
+
+    assert tpar.__all__ == jpar.__all__
+    for name in tpar.__all__:
+        assert hasattr(tpar, name), name
+    assert set(tpar.distributed.__all__) == set(jpar.distributed.__all__)
 
 
 def test_schema_version_is_shared():

@@ -20,8 +20,8 @@ of tests/test_perturbations.py:34-48.  Two kinds of test:
   the Christoffels' last bit).
 * **Mirrors of tests/test_perturbations.py** with the port's own solves
   (kernel B6's plain version on the CPU), at the JAX tests' own
-  assertions and tolerances.  The four ``*_sharded_*`` tests wait for
-  ROADMAP §A.7: in their place, ``mesh=`` must raise and name it.
+  assertions and tolerances.  The four ``*_sharded_*`` tests are in
+  tests/test_torch_parallel_spectra.py; here ``mesh=`` must be a mesh.
 """
 
 import numpy as np
@@ -391,7 +391,7 @@ def test_spectra_error_paths(quadratic):
 
 
 # ----------------------------------------------------------------------- #
-# in place of the sharded tests: mesh= raises until ROADMAP §A.7            #
+# mesh= takes a Mesh (the sharded cases: tests/test_torch_parallel_spectra.py) #
 # ----------------------------------------------------------------------- #
 
 
@@ -399,14 +399,14 @@ def test_spectra_error_paths(quadratic):
                                    "transport_spectrum"])
 def test_mesh_raises_until_multi_gpu(quadratic, entry):
     art, m, rows, times = quadratic
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    with pytest.raises(TypeError, match="make_mesh"):
         getattr(tp, entry)(art, m, rows, times, mesh=object(), device=CPU)
 
 
 @pytest.mark.parametrize("entry", ["delta_n_sweep", "mode_sweep", "transport_sweep"])
 def test_sweep_mesh_raises_until_multi_gpu(quadratic, entry):
     art, m, _, _ = quadratic
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    with pytest.raises(TypeError, match="make_mesh"):
         getattr(tp, entry)(art, np.array([m]), [12.0, 0.0], [0.0, 0.0], mesh=object(),
                            device=CPU)
 
