@@ -135,8 +135,8 @@ passes or ends the script with a nonzero exit:
     against the CPU); ``observable_jacobian`` and ``fisher_matrix`` on
     hyperinflation, S2 and the α-attractor's pivot against the CPU;
     ``solve_eom_fixed`` over a 2000-point grid (rows against the CPU, a
-    directional gradient against central differences, forward and
-    backward timed, kernel launches a step counted); a 64-start
+    directional gradient against central differences of the same
+    function on the CPU, forward and backward timed, kernel launches a step counted); a 64-start
     ``fit_parameters`` of the α-attractor's (c, α) over 300 steps, its
     history against the CPU's; a ``profiling.trace`` around one B1
     ``complete_analysis`` at 4096² in a fresh process (``chip_smoke.py
@@ -164,15 +164,15 @@ passes or ends the script with a nonzero exit:
     prior) with its value and gradient at three masses, and one HMC and one
     NUTS transition of 4 chains from one pre-drawn block, each against
     ``device="cpu"`` (rtol 1e-12); ms a transition on the card and on the
-    CPU (host clock, median of 3 runs of 20); launches a density evaluation
+    CPU (host clock, median of 3 runs of ``POST_TIMED``); launches a density evaluation
     and a transition and the device's idle share from torch.profiler in a
     fresh process (``chip_smoke.py --trace-worker DIR posterior``); the
     density's batching route; examples/posterior.py's workload (4 chains,
     24 leapfrog steps, ``POST_WARMUP`` + ``POST_SAMPLES`` transitions, cut
     from 1000 + 3000, the standard errors printed) held to the port's
     Fisher forecast at tests/test_inference.py:92's tolerances, and NUTS on
-    its correlated Gaussian (:44) at that test's tolerances (300 + 750
-    transitions, cut from 600 + 1500).  Prints a
+    its correlated Gaussian (:44) at that test's tolerances
+    (``NUTS_WARMUP`` + ``NUTS_SAMPLES`` transitions, cut from 600 + 1500).  Prints a
     ``phase 30 summary:`` JSON line.
 31. many devices (``inflatox_torch.parallel``) on the card, no kernel of
     its own: meshes (a) ``make_mesh()``, the card as one slot, and (b) four
@@ -186,14 +186,30 @@ passes or ends the script with a nonzero exit:
     unsharded call, launched once a slot (counted), cfg1's rows 0-63 and
     cfg5d's trajectories 0-63 also against the CPU; the spectra of phase
     29's quadratic model (one set, 8 pivots, the RK4 loops at 1000 + 500
-    steps) and ``sample_posterior`` on phase 30's model (4 chains, 20 + 20
+    steps) and ``sample_posterior`` on phase 30's model (4 chains, 10 + 10
     transitions) over a 2-slot mesh (rtol 1e-12; the draws bit for bit);
     then (c) two ``chip_smoke.py --dist-worker ADDRESS RANK`` processes
     sharing cuda:0 through ``distributed.initialize`` (gloo), each rank's
     gathered cfg1 scan and cfg5d solve bit for bit its single-device call.
     Sharded and unsharded times side by side (CUDA events over chained
     calls for the kernel paths, the host clock for the user-facing calls)
-    and a ``phase 31 summary:`` JSON line.
+    and a ``phase 31 summary:`` JSON line;
+32. the port's seven examples (``examples/torch_*.py``), each in this
+    process through its ``main(["--device", "cuda"])`` at its full sizes
+    after the launch counts are set to 0 (``scripts/time_examples.py``;
+    their kernel libraries build with the others in phase 2): its own
+    asserts, its wall time on the host clock, its kernel launches by
+    kernel, failing when a kernel its table names (quickstart B1, B6, B7a;
+    engines tour B1, B2, B4; special functions B1 with B8 inside;
+    background sweep B6, B5a; fit B1; spectra B6; pipeline B1, B6) was
+    launched no time; then the port's C oracle (``inflatox_torch.native``)
+    for hyperinflation on the card's host: cfg1 at 4096² fused and
+    reference-style, points a second beside kernel B1's, and B1's maps
+    against the oracle's with identical NaN/±inf masks: rows 0-63 at rtol
+    5e-10, the whole map at 5e-10 except where the map is not settled by
+    its inputs' last bit (a one-ulp move of the extent moves B1's value by
+    more than 5e-11; at most 1e-4 of the values); a ``phase 32 summary:``
+    JSON line.
 
 The point paths' bounds (B5a on phases 9 and 24, B5b on phase 16) count
 each distinct operation of the kind's fused point function once (the least
@@ -341,15 +357,17 @@ POST_CHAINS, POST_LEAPFROG, POST_SEED = 4, 24, 0
 # examples/posterior.py takes 1000 + 3000 transitions and the NUTS test 600 +
 # 1500: ~450-650 s and ~40 s at the 100-165 ms and ~19 ms a transition
 # measured on the card (PERF.md §5), over phase 30's ~180 s; cut, the
-# standard errors printed
-POST_WARMUP, POST_SAMPLES = 200, 400
+# standard errors printed.  200 + 300 since phase 32 joined (200 + 400
+# before): the whole run took ~1,150 s on a slower card host
+POST_WARMUP, POST_SAMPLES = 200, 300
 POST_CUT = "; cut from examples/posterior.py's 1000 + 3000"
 RTOL_POSTERIOR = 1e-12  # the card against device="cpu"
-POST_TIMED, POST_COUNTED = 20, 3  # transitions a timed run; a profiled run
+POST_TIMED, POST_COUNTED = 10, 3  # transitions a timed run (20 before phase 32); a profiled run
 # NUTS on the correlated Gaussian of tests/test_inference.py:44
 GAUSS_COV = [[1.0, 0.6, 0.0], [0.6, 2.0, 0.3], [0.0, 0.3, 0.5]]
 GAUSS_MEAN = [1.0, -2.0, 0.5]
-NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 300, 750, 7  # cut from the test's 600 + 1500
+# cut from the test's 600 + 1500 (300 + 750 before phase 32)
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 200, 500, 7
 # phase 31: many devices (meshes of the port's parallel package)
 MESH_SLOTS = 4  # mesh (b): four slots on cuda:0
 MESH_CFG1_N, MESH_EGNO_N = 4096, 2048  # bench cfg1's grid; EGNO's (cfg3)
@@ -362,7 +380,7 @@ SPECTRA_MESH_SLOTS = 2  # the spectra's and the posterior's mesh
 # loop a slot)
 MESH_SPECTRA_STEPS = {"dense_steps": 1000, "tail_steps": 500}
 RTOL_MESH_SPECTRA = 1e-12  # the RK4 loops' batched products round with the batch
-MESH_POST_WARMUP, MESH_POST_SAMPLES = 20, 20
+MESH_POST_WARMUP, MESH_POST_SAMPLES = 10, 10  # 20 + 20 before phase 32
 DIST_TIMEOUT_S = 300  # each --dist-worker process
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROFILE_DIR = os.path.join(HERE, "build", "chip_smoke_profile")  # under .gitignore's build/
@@ -2231,9 +2249,9 @@ def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
     direction = np.array([0.6, 0.48, -0.64])  # over (m, x0[0], x0[1])
     grad = np.concatenate([p.grad.cpu().numpy(), xs.grad.cpu().numpy()])
     h = 1e-6
-    with torch.no_grad():
-        up = float(value(args + h * direction[:1], x_init + h * direction[1:])[1])
-        down = float(value(args - h * direction[:1], x_init - h * direction[1:])[1])
+    with torch.no_grad():  # on the CPU, which the rows equal within RTOL_CMB
+        up = float(value(args + h * direction[:1], x_init + h * direction[1:], "cpu")[1])
+        down = float(value(args - h * direction[:1], x_init - h * direction[1:], "cpu")[1])
     fd = (up - down) / (2 * h)
     check(abs(fd - grad @ direction) <= 1e-5 * abs(fd), f"solve_eom_fixed: gradient "
           f"{grad @ direction!r} against central differences {fd!r}")
@@ -3333,6 +3351,112 @@ def dist_worker(argv):
     return 0
 
 
+# ------------------------------------------------------------------------- #
+# phase 32: the examples on the card, and the C oracle on the card's host   #
+# ------------------------------------------------------------------------- #
+
+
+def examples_phase(modules, art, args, device, card):
+    """Phase 32 (module docstring): every example at its full sizes on the
+    card through ``main(["--device", "cuda"])``, each launching the kernels
+    ``scripts/time_examples.py`` names for it; then the port's C oracle
+    (``inflatox_torch.native``) at cfg1 against kernel B1.  Returns the
+    phase's summary."""
+    import numpy as np
+    import torch
+
+    import time_examples
+    from inflatox_torch.native import NativeModel, native_available
+    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops.cuda_kernels import scan_cuda
+
+    summary = {"examples": {}}
+    for name, kernels in time_examples.EXAMPLES.items():
+        try:
+            result = time_examples.run(name, modules[name], "cuda")
+        except AssertionError as e:
+            raise SmokeFailure(f"phase 32 {name}: the example's own check failed: {e}") from e
+        for kernel in kernels:
+            if kernel == "B6":
+                check(cuda_solver.LAUNCHES > 0, f"phase 32 {name}: kernel B6 was launched no time")
+            else:
+                launched(kernel, f"phase 32 {name}")
+        out = result["out"]
+        if name == "quickstart":
+            check(abs(out["V"] - GOLDEN_V) <= 1e-12 * GOLDEN_V, f"quickstart: V = {out['V']!r}")
+            check(out["fast_ran"] == "kernel B1", f"quickstart: the f64 route ran {out['fast_ran']}")
+        elif name == "engines_tour":
+            rows = out["rows"]
+            check(rows["f64"]["median_dev"] == 0.0 and rows["dd"]["median_dev"] < 1e-14
+                  and rows["f32"]["median_dev"] < RTOL_F32,
+                  f"engines_tour: median deviations {[r['median_dev'] for r in rows.values()]}")
+        elif name == "special_functions":
+            check("B8" in out["bessel_route"] and "B8" in out["hyp_route"]
+                  and out["finite_fraction"] > 0 and out["V_grid_finite"],
+                  f"special_functions: {out['bessel_route']}, {out['hyp_route']}")
+        summary["examples"][name] = {"wall_s": result["wall_s"], "launches": result["launches"]}
+        print(f"phase 32 {name} on {card}: wall {result['wall_s']:.3f} s (host clock, one call "
+              f"at the script's full sizes, its kernel libraries built in phase 2); kernel "
+              f"launches {result['launches']}; its last line: {result['last_line']}", flush=True)
+
+    # the C oracle at cfg1 against kernel B1
+    check(native_available(), "phase 32: no C compiler on the card's host for the C oracle")
+    t = time.perf_counter()
+    nm = NativeModel(art.model)
+    build_s = time.perf_counter() - t
+    n = 4096
+    fused_s = host_clock_ms(lambda: nm.complete_analysis(args, *DOC_EXTENT, n, n)) / 1e3
+    ref_s = host_clock_ms(lambda: nm.complete_analysis_refstyle(args, *DOC_EXTENT, n, n)) / 1e3
+    b1_ms = time_ms(lambda: scan_cuda(art, "complete_analysis", args, DOC_EXTENT, (n, n), device),
+                    N_TIMED_KERNEL)
+    rates = {"c_fused": n * n / fused_s, "c_refstyle": n * n / ref_s, "b1": n * n / b1_ms * 1e3}
+    compiler = run([nm.cc, "--version"]).splitlines()[0]
+    print(f"phase 32 C oracle (inflatox_torch.native: {nm.cc}, {compiler}; -O3 -march=native "
+          f"-fopenmp) on the card's host ({os.cpu_count()} cores), cfg1 {n}²: build "
+          f"{build_s:.2f} s; fused "
+          f"{fused_s:.4f} s ({rates['c_fused']:.4e} points/s), refstyle {ref_s:.4f} s "
+          f"({rates['c_refstyle']:.4e} points/s), median of 3; kernel B1 on {card} "
+          f"{b1_ms:.4f} ms ({rates['b1']:.4e} points/s, CUDA events over {N_TIMED_KERNEL} "
+          f"chained launches): B1 / fused {rates['b1'] / rates['c_fused']:.1f}x, B1 / refstyle "
+          f"{rates['b1'] / rates['c_refstyle']:.1f}x", flush=True)
+    oracle = torch.from_numpy(np.stack(nm.complete_analysis(args, *DOC_EXTENT, n, n))).to(device)
+    maps = scan_cuda(art, "complete_analysis", args, DOC_EXTENT, (n, n), device)
+    rows = 64
+    rel64, abs64, same64 = compare(maps[:, :rows], oracle[:, :rows])
+    # the whole map: identical masks, and every value within RTOL except
+    # where the map is not settled to RTOL by its inputs' last bit: where
+    # moving the extent's ends one ulp up (each coordinate by about one ulp)
+    # moves B1's own value by more than RTOL / 10 (there V's two terms
+    # cancel, e.g. ε_V ~ 4e15; two correct f64 evaluations part there)
+    t = time.perf_counter()
+    rel, absolute, same = compare(maps, oracle, rtol=float("inf"))
+    nudged = scan_cuda(art, "complete_analysis", args,
+                       tuple(float(np.nextafter(e, np.inf)) for e in DOC_EXTENT), (n, n), device)
+    finite = torch.isfinite(oracle)
+    unsettled = finite & ~((nudged - maps).abs() <= RTOL / 10 * maps.abs())
+    beyond = finite & ((maps - oracle).abs() > RTOL * oracle.abs())
+    n_unsettled, n_beyond = int(unsettled.sum()), int(beyond.sum())
+    n_finite = int(finite.sum())
+    whole_s = time.perf_counter() - t
+    check(not bool((beyond & ~unsettled).any()),
+          f"phase 32: B1 against the C oracle beyond rtol {RTOL} at "
+          f"{int((beyond & ~unsettled).sum())} settled values")
+    check(n_unsettled <= 1e-4 * n_finite,
+          f"phase 32: {n_unsettled} of {n_finite} finite values unsettled by one ulp")
+    print(f"phase 32 kernel B1 against the C oracle at cfg1, identical NaN/±inf masks, rtol "
+          f"{RTOL}: rows 0-{rows - 1} max_rel={rel64:.3e} max_abs={abs64:.3e} "
+          f"bit_identical={same64:.6f}; the whole map ({n_finite} finite values) "
+          f"max_rel={rel:.3e} max_abs={absolute:.3e} bit_identical={same:.6f}, {n_beyond} "
+          f"beyond rtol {RTOL}, each among the {n_unsettled} values that a one-ulp move of "
+          f"the extent moves by more than {RTOL / 10:.0e} ({whole_s:.2f} s on the card)",
+          flush=True)
+    summary["c_oracle"] = {"cores": os.cpu_count(), "compiler": compiler, "points_per_s": rates,
+                           "b1_ms": b1_ms, "fused_s": fused_s, "refstyle_s": ref_s,
+                           "max_rel": rel, "bit_identical": same, "beyond_rtol": n_beyond,
+                           "unsettled": n_unsettled, "finite": n_finite}
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -3416,6 +3540,15 @@ def main() -> int:
 
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import probe_solver_chain as chain  # B6's attribution (phase 11)
+    import time_examples  # phase 32
+
+    t2 = time.perf_counter()
+    example_modules = {name: time_examples.load(name) for name in time_examples.EXAMPLES}
+    example_jobs = {f"example {label}": (load, source)
+                    for name, module in example_modules.items()
+                    for label, load, source in time_examples.libraries(name, module)}
+    t_example_models = time.perf_counter() - t2
+    t2 = time.perf_counter()
 
     parent = sys.argv[2] if sys.argv[1:2] == ["--parent"] else None
     parent_jobs = start_parent_builds(os.path.abspath(parent)) if parent else {}
@@ -3445,6 +3578,7 @@ def main() -> int:
         **{f"{b} {name}": (load_grid_scan, special[name].cuda_source(precision))
            for name in ("C9", "sinc") for b, precision in (("B1", "f64"), ("B2", "f32"),
                                                            ("B4", "dd"))},
+        **example_jobs,  # phase 32
     }
     with ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
@@ -3452,15 +3586,18 @@ def main() -> int:
     t3 = time.perf_counter()
     al = GeneralisedAL(art, device=device, validation_seed=7)
     print(f"build: hyperinflation model {t1 - t0:.2f} s, angular and 3-field models "
-          f"{t2 - t1 - t_bundles - t_special:.2f} s, EGNO and D5 from their bundles "
+          f"{t2 - t1 - t_bundles - t_special - t_example_models:.2f} s, EGNO and D5 from "
+          f"their bundles "
           f"{t_bundles:.2f} s, the special-function models S1-S3, C9 and sinc "
           f"{t_special:.2f} s; "
           f"kernel B1 first use (nvcc + load) {built['B1/B5 hyperinflation'][1]:.2f} s; all "
           f"{len(jobs)} kernel libraries, built at once, {t3 - t2:.2f} s; nvcc per library: "
           + ", ".join(f"{name} {lib.build_seconds:.2f} s" for name, (lib, _) in built.items()))
+    print(f"build: the examples' models (phase 32) {t_example_models:.2f} s; their "
+          f"{len(example_jobs)} libraries among the {len(jobs)}")
     for name in jobs:
-        if name.startswith("B6"):
-            continue  # phase 7
+        if name.startswith(("B6", "example")):
+            continue  # phase 7; the examples' libraries are instances of the others
         log = open(built[name][0].build_log).read()
         regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
         spills = [int(a) + int(b) for a, b in
@@ -4156,6 +4293,12 @@ def main() -> int:
     print(f"phase 31 on {card}: {time.perf_counter() - t_phase31:.1f} s; the whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print("phase 31 summary: " + json.dumps(meshes))
+    # 32. the examples on the card; the C oracle on its host
+    t_phase32 = time.perf_counter()
+    examples = examples_phase(example_modules, art, args, device, card)
+    print(f"phase 32 on {card}: {time.perf_counter() - t_phase32:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print("phase 32 summary: " + json.dumps(examples))
     if parent_jobs:
         parent_turns(parent_jobs, point_cases, {"f64": art, "egno": egno, **{
             k.lower(): special[k] for k in ("S1", "S2", "S3")}}, card)

@@ -742,3 +742,29 @@ def test_sharded_scan_on_four_slots_of_one_card(doc, cuda_device, precision):
     assert got.device == cuda_device and got.shape == want.shape and got.dtype == want.dtype
     bits = torch.int32 if precision == "f32" else torch.int64
     assert torch.equal(got.view(bits), want.view(bits))
+
+
+def test_engines_tour_example_on_the_card(cuda_device):
+    """``examples/torch_engines_tour.py --device cuda --n 128``: the f64, f32
+    and double-double rows launch B1, B2 and B4 once each (the pair output
+    one more B1), and the f64 and dd maps agree with the ``engine="torch"``
+    row at phase 4's tolerance (rtol 5e-10, identical NaN/±inf masks); the
+    f32 row's median deviation from it below phase 13's 1e-5."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "torch_engines_tour.py")
+    spec = importlib.util.spec_from_file_location("torch_engines_tour", path)
+    tour = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tour)
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    out = tour.main(["--device", "cuda", "--n", "128"])
+    launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items()}
+    assert launched == {**{k: 0 for k in launched}, "B1": 2, "B2": 1, "B4": 1}
+    rows = out["rows"]
+    ref = torch.from_numpy(rows["reference"]["maps"])
+    for key in ("f64", "dd"):
+        assert_maps_close(torch.from_numpy(rows[key]["maps"]), ref)
+    assert rows["f32"]["median_dev"] < 1e-5
+    np.testing.assert_allclose(out["pair_value"], rows["f64"]["maps"][0, 0, 0],
+                               rtol=2.0**-48, atol=0)

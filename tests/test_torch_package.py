@@ -39,6 +39,9 @@ MODULES = [
     "inflatox_torch.lowering.cuda_codegen",
     "inflatox_torch.lowering.torch_lowering",
     "inflatox_torch.models",
+    "inflatox_torch.native",
+    "inflatox_torch.native.backend",
+    "inflatox_torch.native.codegen",
     "inflatox_torch.observables",
     "inflatox_torch.ops.build",
     "inflatox_torch.ops.cuda_kernels",
@@ -83,6 +86,28 @@ def test_import_pulls_in_no_jax(imported_modules, module):
     assert not seen["jax"], f"importing {module} imported jax"
     assert not seen["inflatox_tpu"], f"importing {module} imported inflatox_tpu"
     assert seen["recursionlimit"] >= 100_000
+
+
+def test_examples_import_no_jax():
+    """Loading each of the port's example scripts (``examples/torch_*.py``,
+    their ``main`` not run) in one fresh process imports neither jax nor
+    inflatox_tpu."""
+    code = (
+        "import glob, importlib.util, json, os, sys\n"
+        "seen = {}\n"
+        "for path in sorted(glob.glob(os.path.join('examples', 'torch_*.py'))):\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    seen[path] = ['jax' in sys.modules, 'inflatox_tpu' in sys.modules]\n"
+        "print(json.dumps(seen))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(seen) == 8
+    assert not any(a or b for a, b in seen.values()), seen
 
 
 def test_exported_names():
