@@ -859,17 +859,17 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
     import torch
 
     from inflatox_torch import background
-    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
 
     batch, n = f0.shape
     d0 = np.zeros_like(f0)
-    cuda_solver.LAUNCHES = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
     t = time.perf_counter()
     rows_np, times_np = background.solve_eom_batch(art, pars, steps, f0, d0, max_err=max_err,
                                                    solver=solver, return_time=True)
     host_s = time.perf_counter() - t
-    launches = cuda_solver.LAUNCHES
+    launches = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     check(launches > 0, f"{label}: the solve launched no kernel")
     check(rows_np.shape == (batch, steps, 2 * n + 1) and times_np.shape == (batch, steps),
           f"{label}: rows {rows_np.shape}, times {times_np.shape}")
@@ -1411,10 +1411,10 @@ def b8_alone(device, card):
     import numpy as np
     import torch
 
-    from inflatox_torch.ops import special_eval
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.special_eval import special_eval_cuda, special_eval_torch
 
-    special_eval.LAUNCHES["B8"] = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B8"] = 0
     library = torch_library()
     gen = torch.Generator(device=device).manual_seed(22)
     edges = torch.tensor(SF_EDGES, dtype=torch.float64, device=device)
@@ -1499,7 +1499,7 @@ def b8_alone(device, card):
     torch.cuda.synchronize()
     slowest["plain_ms"] = (time.perf_counter() - t) * 1e3
     slowest["bound"] = bound(SF_N * 16, slowest["ops"] * SF_N)
-    slowest["launches"] = special_eval.LAUNCHES["B8"]
+    slowest["launches"] = cuda_kernels.LAUNCHES_BY_KERNEL["B8"]
     print("B8 cases: " + json.dumps(summary))
     print(f"B8 alone on {card}: every case's kernel bit-identical share at least "
           f"{worst_bits:.6f} (f64 and f32); the slowest, {slowest['label']}, "
@@ -1615,17 +1615,17 @@ def special_solve_check(art, pars, f0, steps, label, device, parts):
     import torch
 
     from inflatox_torch import background
-    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.cuda_solver import solve_cuda, solve_torch
 
     batch, n = f0.shape
     d0 = np.zeros_like(f0)
-    cuda_solver.LAUNCHES = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
     t = time.perf_counter()
     rows_np, times_np = background.solve_eom_batch(art, pars, steps, f0, d0, solver="rkf",
                                                    return_time=True, device=device)
     host_s = time.perf_counter() - t
-    launches = cuda_solver.LAUNCHES
+    launches = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     check(launches > 0, f"{label}: the solve launched no kernel")
     ok = np.isfinite(rows_np).all(axis=(1, 2))
     check(rows_np.shape == (batch, steps, 2 * n + 1) and ok.mean() > 0.5,
@@ -2066,7 +2066,7 @@ def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
 
     from inflatox_torch import background
     from inflatox_torch import observables as ob
-    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.grid import axis_coords
 
     launches = {}
@@ -2074,12 +2074,13 @@ def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
 
     # background (kernel B6) and the CMB pivot, each function on the card
     # held against device="cpu" on the same rows
-    cuda_solver.LAUNCHES = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
     t = time.perf_counter()
     rows, times = background.solve_eom(aa, aa_args, CMB_STEPS, f0, [0.0, 0.0], max_err=1e-9,
                                        solver="rkf", return_time=True, device=device)
     solve_s = time.perf_counter() - t
-    check(cuda_solver.LAUNCHES == 1, f"α-attractor solve: {cuda_solver.LAUNCHES} B6 launches")
+    b6 = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
+    check(b6 == 1, f"α-attractor solve: {b6} B6 launches")
     check(bool(np.isfinite(rows).all()) and bool((np.diff(times) > 0).all()),
           "α-attractor solve: non-finite rows or times not increasing")
     print(f"α-attractor solve_eom(solver='rkf', max_err=1e-9) {CMB_STEPS} rows on kernel B6: "
@@ -2109,7 +2110,7 @@ def cmb_phase(art, args, al, aa, aa_args, hyperbolic, s2, device, card):
     again = ob.cobe_normalize(aa, rows2, times2, args2, device=device)
     check(abs(again["P_zeta"] / 2.1e-9 - 1.0) <= 1e-4,
           f"COBE round trip: P_zeta {again['P_zeta']!r} after rescaling M4")
-    launches["B6"] = cuda_solver.LAUNCHES
+    launches["B6"] = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     check(launches["B6"] == 2, f"phase 28's solves: {launches['B6']} B6 launches")
     print(f"COBE round trip: scale {outs['cobe_normalize']['scale']:.10e}, re-solved on B6: "
           f"P_zeta {again['P_zeta']:.10e} (within {abs(again['P_zeta'] / 2.1e-9 - 1):.2e} of "
@@ -2409,7 +2410,7 @@ def spectra_phase(quad, curved, c_args, device, card):
 
     from inflatox_torch import background
     from inflatox_torch import perturbations as pert
-    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.cuda_solver import solve_cuda
 
     launches = {}
@@ -2417,14 +2418,14 @@ def spectra_phase(quad, curved, c_args, device, card):
     f0, d0 = [12.0, 0.0], [0.0, 0.0]
 
     def counted(label, expected, fn):
-        cuda_solver.LAUNCHES = 0
+        cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        check(cuda_solver.LAUNCHES == expected,
-              f"{label}: {cuda_solver.LAUNCHES} B6 launches, expected {expected}")
+        check(cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == expected,
+              f"{label}: {cuda_kernels.LAUNCHES_BY_KERNEL["B6"]} B6 launches, expected {expected}")
         launches[label] = expected
         return out, seconds
 
@@ -2813,10 +2814,10 @@ def posterior_phase(art, device, card):
     import torch
 
     from inflatox_torch import inference, observables
-    from inflatox_torch.ops import cuda_kernels, cuda_solver, special_eval
+    from inflatox_torch.ops import cuda_kernels
 
     summary = {"card": card}
-    before = (cuda_kernels.launches(), cuda_solver.LAUNCHES, special_eval.LAUNCHES["B8"])
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
     roles = {"card": device, "cpu": torch.device("cpu")}
     logps = posterior_logps(art, roles.values())
 
@@ -2969,7 +2970,7 @@ def posterior_phase(art, device, card):
           f"{np.abs(np.cov(s.T) - GAUSS_COV).max():.3f} (0.25), ESS {out['ess']}, R-hat "
           f"{out['r_hat'].max():.4f}, accept {out['accept_rate'].mean():.3f}")
 
-    after = (cuda_kernels.launches(), cuda_solver.LAUNCHES, special_eval.LAUNCHES["B8"])
+    after = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
     check(after == before, f"phase 30 launched a kernel of B1-B8: {before} -> {after}")
     return summary
 
@@ -3000,16 +3001,13 @@ def mesh_counted(label, fn, kernel, expected):
     launched ``expected`` times and no other kernel at all."""
     import torch
 
-    from inflatox_torch.ops import cuda_kernels, cuda_solver
+    from inflatox_torch.ops import cuda_kernels
 
     reset_counts()
-    cuda_solver.LAUNCHES = 0
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v}
-    if cuda_solver.LAUNCHES:
-        counts["B6"] = cuda_solver.LAUNCHES
     want = {kernel: expected} if kernel else {}
     check(counts == want, f"phase 31 {label}: launches {counts}, expected {want}")
     return out
@@ -3367,7 +3365,6 @@ def examples_phase(modules, art, args, device, card):
 
     import time_examples
     from inflatox_torch.native import NativeModel, native_available
-    from inflatox_torch.ops import cuda_solver
     from inflatox_torch.ops.cuda_kernels import scan_cuda
 
     summary = {"examples": {}}
@@ -3377,10 +3374,7 @@ def examples_phase(modules, art, args, device, card):
         except AssertionError as e:
             raise SmokeFailure(f"phase 32 {name}: the example's own check failed: {e}") from e
         for kernel in kernels:
-            if kernel == "B6":
-                check(cuda_solver.LAUNCHES > 0, f"phase 32 {name}: kernel B6 was launched no time")
-            else:
-                launched(kernel, f"phase 32 {name}")
+            launched(kernel, f"phase 32 {name}")
         out = result["out"]
         if name == "quickstart":
             check(abs(out["V"] - GOLDEN_V) <= 1e-12 * GOLDEN_V, f"quickstart: V = {out['V']!r}")
@@ -3471,7 +3465,7 @@ def main() -> int:
     import inflatox_torch
     from inflatox_torch import background
     from inflatox_torch.consistency_conditions import GeneralisedAL
-    from inflatox_torch.ops import cuda_solver
+    from inflatox_torch.ops import cuda_kernels
     from inflatox_torch.ops.build import (
         find_nvcc,
         load_grid_scan,
@@ -3705,13 +3699,13 @@ def main() -> int:
     # 10. the basin survey at cfg5e's size
     rng = np.random.default_rng(1)
     f0s = np.stack([rng.uniform(1.5, 2.5, B_SOLVE), rng.uniform(1.5, 2.5, B_SOLVE)], 1)
-    cuda_solver.LAUNCHES = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
                                                   max_err=1e-6, chunk=B_SOLVE)
     survey_s = time.perf_counter() - t
-    check(cuda_solver.LAUNCHES > 0, "survey: no kernel launched")
+    check(cuda_kernels.LAUNCHES_BY_KERNEL["B6"] > 0, "survey: no kernel launched")
     t = time.perf_counter()
     plain_survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
                                                         max_err=1e-6, chunk=B_SOLVE,
@@ -3725,7 +3719,7 @@ def main() -> int:
           "survey: output shapes")
     print(f"basin survey hyperinflation {B_SOLVE}x{STEPS} on {card}: "
           f"{survey_s:.3f} s host clock ({B_SOLVE / survey_s:.1f} initial conditions/s), "
-          f"{cuda_solver.LAUNCHES} kernel launch(es); ended {survey['ended'].mean():.4f}, "
+          f"{cuda_kernels.LAUNCHES_BY_KERNEL['B6']} kernel launch(es); ended {survey['ended'].mean():.4f}, "
           f"median N_inflation {np.nanmedian(survey['N_inflation']):.4f}; all five outputs "
           f"equal engine='torch' on the card ({plain_survey_s:.2f} s)")
 

@@ -105,12 +105,13 @@ def main(argv=None):
 
     # batched: one kernel launch (B6) for many initial conditions
     inits = np.column_stack([np.linspace(1.8, 2.2, opts.batch), np.full(opts.batch, 2.0)])
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
     batch = background.solve_eom_batch(
         artifact, args, opts.batch_steps, inits, np.zeros_like(inits), solver="rkf",
         device=device,
     )
     out["batch"] = batch
-    print("batched trajectories:", batch.shape)
+    print("batched trajectories:", batch.shape, "from", ran_since(before))
 
     # ---- 5. multi-GPU (runs on however many GPUs are attached) ------------ #
     if device.type == "cuda" and torch.cuda.device_count() > 1:

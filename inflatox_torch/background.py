@@ -42,6 +42,7 @@ from .parallel.mesh import check_mesh_device
 from .parallel.solve import sharded_solve_eom_batch
 from .utils.devices import resolve_device, resolve_engine
 from .utils.errors import ShapeError
+from .utils.profiling import annotate
 
 __all__ = ["solve_eom", "solve_eom_batch", "survey_initial_conditions", "efolds"]
 
@@ -275,6 +276,10 @@ def survey_initial_conditions(
     Returns a dict of (B,) numpy arrays: ``N_inflation`` (NaN where
     inflation never happens or never ends), ``ended`` (bool), ``H_end``,
     ``x_end`` ((B, n)), ``N_span`` (e-folds over the whole trajectory).
+    Spans per chunk (``utils.profiling``): ``inflx.survey.solve`` (the
+    inputs to the device, the solve's enqueue and the parameters' copy,
+    which waits for the solve), ``inflx.survey.reduce`` and
+    ``inflx.survey.deliver`` (the copies of the summaries to the host).
 
     ``solver``: None (``"rkf"``), ``"rkf"`` or ``"rk4"``; ``device``,
     ``engine`` and ``mesh`` as in :func:`solve_eom_batch`."""
@@ -299,19 +304,23 @@ def survey_initial_conditions(
     for c0 in range(0, B, int(chunk)):
         sl = slice(c0, min(B, c0 + int(chunk)))
         p_c = pars if pars.ndim == 1 else pars[sl]
-        if mesh is not None:
-            rows, times = sharded_solve_eom_batch(
-                artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
-                solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
-                combine="device", engine=engine,
-            )
-        else:
-            rows, times = _solve_batch_device(
-                artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
-                max_err, solver, device, engine,
-            )
-        p_t = torch.as_tensor(p_c, dtype=torch.float64, device=device)
-        outs.append([v.cpu().numpy() for v in _survey_reduce(artifact, rows, times, p_t)])
+        with annotate("inflx.survey.solve"):
+            if mesh is not None:
+                rows, times = sharded_solve_eom_batch(
+                    artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
+                    solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
+                    combine="device", engine=engine,
+                )
+            else:
+                rows, times = _solve_batch_device(
+                    artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
+                    max_err, solver, device, engine,
+                )
+            p_t = torch.as_tensor(p_c, dtype=torch.float64, device=device)
+        with annotate("inflx.survey.reduce"):
+            summary = _survey_reduce(artifact, rows, times, p_t)
+        with annotate("inflx.survey.deliver"):
+            outs.append([v.cpu().numpy() for v in summary])
     n_inf, ended, h_end, x_end, n_span = (
         np.concatenate([o[j] for o in outs]) for j in range(5)
     )

@@ -28,6 +28,7 @@ from .lowering import SymbolRegistry, lower
 from .symbolic import InflationModel
 from .utils.errors import SchemaVersionError
 from .utils.logging import log_info
+from .utils.profiling import annotate
 from .version import __schema_version__, schema_compatible
 
 __all__ = ["Compiler", "CompiledModel", "CompilationArtifact"]
@@ -278,9 +279,10 @@ class CompiledModel:
         found = bundle.get("schema_version", "0.0.0")
         if not schema_compatible(found):
             raise SchemaVersionError(found, __schema_version__)
-        model = InflationModel.from_dict(bundle["model"])
-        registry = SymbolRegistry.from_model(model)
-        return cls(model, registry, **bundle.get("options", {}))
+        with annotate("inflx.load"):
+            model = InflationModel.from_dict(bundle["model"])
+            registry = SymbolRegistry.from_model(model)
+            return cls(model, registry, **bundle.get("options", {}))
 
 
 #: Drop-in alias for users porting from the reference API.

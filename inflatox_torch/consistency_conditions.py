@@ -29,6 +29,8 @@ The ``threads`` keyword of the reference is accepted and ignored.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -38,6 +40,7 @@ from .ops.grid import grid_coords
 from .utils.devices import resolve_device, resolve_engine, resolve_precision
 from .utils.errors import BasisNormError, BasisOrthogonalityError, ShapeError
 from .utils.logging import Progress, log_warn
+from .utils.profiling import annotate
 
 __all__ = ["InflationCondition", "GeneralisedAL"]
 
@@ -427,16 +430,23 @@ class GeneralisedAL(InflationCondition):
 
     def _scan(self, kind, args, extent, shape, progress, engine, precision, output="f64"):
         """One grid scan on the device (kernel or plain version); a numpy
-        array for ``output="f64"``, else the tensor on the device."""
-        engine = resolve_engine(engine, self.device, f"kernel {PRECISIONS[precision].grid_kernel}")
-        self._validate_2field()
-        args = self._validate_args(args)
-        scan = scan_cuda if engine == "cuda" else scan_torch
-        with Progress(_SCAN_MESSAGES[kind], enabled=progress,
-                      total_ops=int(shape[0]) * int(shape[1])):
-            out = scan(self.artifact, kind, args, extent, shape, self.device, precision)
+        array for ``output="f64"``, else the tensor on the device.  Spans:
+        ``inflx.scan.launch`` (checks, library lookup, enqueue) and
+        ``inflx.scan.deliver`` (the wait, the numpy allocation and the
+        copy)."""
+        with contextlib.ExitStack() as reporting:
+            with annotate("inflx.scan.launch"):
+                engine = resolve_engine(engine, self.device,
+                                        f"kernel {PRECISIONS[precision].grid_kernel}")
+                self._validate_2field()
+                args = self._validate_args(args)
+                scan = scan_cuda if engine == "cuda" else scan_torch
+                reporting.enter_context(Progress(_SCAN_MESSAGES[kind], enabled=progress,
+                                                 total_ops=int(shape[0]) * int(shape[1])))
+                out = scan(self.artifact, kind, args, extent, shape, self.device, precision)
             if output == "f64":
-                out = out.cpu().numpy()
+                with annotate("inflx.scan.deliver"):
+                    out = out.cpu().numpy()
             elif progress and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # honest finish time
         return out

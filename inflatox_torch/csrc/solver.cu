@@ -25,6 +25,15 @@
 // Output layout: (steps, 2n+2, B) with the trajectory index fastest, so a
 // warp's 32 stores of one component land on 256 contiguous bytes; the
 // wrapper returns (B, steps, 2n+1) rows and (B, steps) times as views.
+//
+// Work counter: given a `counts` pointer, inflx_solve launches the COUNT
+// instance of the kernel, in which each thread keeps its attempts in a
+// register and adds them at the end to counts[0] (attempts, summed over
+// trajectories), and lane 0 of each warp adds (lanes that hold a
+// trajectory) × (the most attempts any of them made) to counts[1]: what the
+// warp's lock-step costs, so counts[0] / counts[1] is the share of lanes
+// doing work.  Without it, the instance that counts nothing runs, compiled
+// as before the counter existed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,18 +43,40 @@
 
 static const int kThreads = 32;
 
-template <int METHOD>
+template <int METHOD, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 solve_kernel(const double* __restrict__ fields0,
              const double* __restrict__ derivs0, const double* __restrict__ p,
              int64_t p_stride, double* __restrict__ out, int64_t n_traj,
-             int64_t steps, double max_err, double inv_max_err) {
+             int64_t steps, double max_err, double inv_max_err,
+             unsigned long long* __restrict__ counts) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_traj) return;
-  inflx_solve_trajectory<METHOD>(
-      fields0 + b * INFLX_NF, derivs0 + b * INFLX_NF,
-      p == nullptr ? p : p + b * p_stride, steps, max_err, inv_max_err,
-      out + b, (int64_t)(INFLX_NY + 1) * n_traj, n_traj);
+  if (!COUNT) {
+    if (b >= n_traj) return;
+    inflx_solve_trajectory<METHOD>(
+        fields0 + b * INFLX_NF, derivs0 + b * INFLX_NF,
+        p == nullptr ? p : p + b * p_stride, steps, max_err, inv_max_err,
+        out + b, (int64_t)(INFLX_NY + 1) * n_traj, n_traj);
+    return;
+  }
+  // every lane of the warp (a block) stays to the end, for the warp's max
+  const bool live = b < n_traj;
+  unsigned long long attempts = 0;
+  if (live) {
+    attempts = (unsigned long long)inflx_solve_trajectory<METHOD, true>(
+        fields0 + b * INFLX_NF, derivs0 + b * INFLX_NF,
+        p == nullptr ? p : p + b * p_stride, steps, max_err, inv_max_err,
+        out + b, (int64_t)(INFLX_NY + 1) * n_traj, n_traj);
+    atomicAdd(counts, attempts);
+  }
+  const unsigned lanes = __ballot_sync(0xffffffffu, live);
+  unsigned long long most = attempts;
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xffffffffu, most, offset);
+    most = other > most ? other : most;
+  }
+  if (threadIdx.x == 0) atomicAdd(counts + 1, (unsigned long long)__popc(lanes) * most);
 }
 
 extern "C" {
@@ -53,11 +84,12 @@ extern "C" {
 // Launch one batched solve on `stream`; returns cudaGetLastError() (0 on
 // success).  fields0, derivs0: (n_traj, INFLX_NF) f64; p: parameters, row b
 // at p + b * p_stride (p_stride 0: shared); out: (steps, 2 INFLX_NF + 2,
-// n_traj) f64, all on the device.
+// n_traj) f64; counts: null (count nothing) or two u64 (attempts,
+// lane_attempts) that the solve adds to; all on the device.
 int inflx_solve(int method, const void* fields0, const void* derivs0,
                 const void* p, int64_t p_stride, void* out, int64_t n_traj,
                 int64_t steps, double max_err, double inv_max_err,
-                void* stream) {
+                void* stream, void* counts) {
   if (n_traj <= 0 || steps <= 0) return (int)cudaErrorInvalidValue;
   const dim3 block(kThreads);
   const dim3 grid((unsigned)((n_traj + kThreads - 1) / kThreads));
@@ -66,18 +98,23 @@ int inflx_solve(int method, const void* fields0, const void* derivs0,
   const double* d0 = (const double*)derivs0;
   const double* pp = (const double*)p;
   double* po = (double*)out;
+  unsigned long long* pc = (unsigned long long*)counts;
+#define INFLX_SOLVE_LAUNCH(M, C)                                             \
+  solve_kernel<M, C><<<grid, block, 0, s>>>(f0, d0, pp, p_stride, po, n_traj, \
+                                           steps, max_err, inv_max_err, pc)
   switch (method) {
     case INFLX_RKF45:
-      solve_kernel<INFLX_RKF45><<<grid, block, 0, s>>>(
-          f0, d0, pp, p_stride, po, n_traj, steps, max_err, inv_max_err);
+      if (pc == nullptr) INFLX_SOLVE_LAUNCH(INFLX_RKF45, false);
+      else INFLX_SOLVE_LAUNCH(INFLX_RKF45, true);
       break;
     case INFLX_RK4:
-      solve_kernel<INFLX_RK4><<<grid, block, 0, s>>>(
-          f0, d0, pp, p_stride, po, n_traj, steps, max_err, inv_max_err);
+      if (pc == nullptr) INFLX_SOLVE_LAUNCH(INFLX_RK4, false);
+      else INFLX_SOLVE_LAUNCH(INFLX_RK4, true);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef INFLX_SOLVE_LAUNCH
   return (int)cudaGetLastError();
 }
 

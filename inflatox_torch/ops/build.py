@@ -67,6 +67,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
 
+from ..utils.profiling import annotate
+
 __all__ = ["BUILD_ROOT", "CSRC", "NVCC_FLAGS", "find_nvcc", "load_grid_scan",
            "load_solver", "load_special_eval"]
 
@@ -189,6 +191,7 @@ def _bind_solver(lib: ctypes.CDLL) -> None:
         ctypes.c_double,    # max_err
         ctypes.c_double,    # 1 / max_err
         ctypes.c_void_p,    # cudaStream_t
+        ctypes.c_void_p,    # counts, (attempts, lane_attempts) u64 (device), or None
     ]
     lib.inflx_solve.restype = ctypes.c_int
     lib.inflx_n_fields.argtypes = []
@@ -273,7 +276,8 @@ def _load(spec: _Library, header_src: str) -> ctypes.CDLL:
             out_dir = BUILD_ROOT / _digest(spec, header_src)
             start = time.perf_counter()
             if not (out_dir / spec.lib).is_file():
-                _compile(spec, out_dir, header_src)
+                with annotate("inflx.build"):
+                    _compile(spec, out_dir, header_src)
             seconds = time.perf_counter() - start
             lib = ctypes.CDLL(str(out_dir / spec.lib))
             spec.bind(lib)

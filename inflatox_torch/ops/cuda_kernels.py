@@ -81,7 +81,7 @@ from ..lowering.special import suppress_domain_warnings
 from .dd import DD, to_f64
 from .grid import grid_coords
 
-__all__ = ["KINDS", "LAUNCHES_BY_KERNEL", "POINT_KINDS", "PRECISIONS", "Precision",
+__all__ = ["GRID_KERNELS", "KINDS", "LAUNCHES_BY_KERNEL", "POINT_KINDS", "PRECISIONS", "Precision",
            "evaluate_points", "launches", "scan_batch_cuda", "scan_batch_torch",
            "scan_cuda", "scan_points_cuda", "scan_points_torch", "scan_torch"]
 
@@ -114,16 +114,22 @@ class Precision(NamedTuple):
 PRECISIONS = {"f64": Precision(0, "B1", "B5a", "B7a"), "f32": Precision(1, "B2", None, "B7b"),
               "dd": Precision(2, "B4", "B5b", "B7d")}
 
-#: kernel launches made by :func:`scan_cuda`, :func:`scan_batch_cuda` and
-#: :func:`scan_points_cuda` in this process, by kernel
-LAUNCHES_BY_KERNEL = {"B1": 0, "B2": 0, "B4": 0, "B5a": 0, "B5b": 0, "B7a": 0, "B7b": 0,
-                      "B7d": 0}
+#: the grid and point kernels, which :func:`launches` sums
+GRID_KERNELS = ("B1", "B2", "B4", "B5a", "B5b", "B7a", "B7b", "B7d")
+
+#: kernel launches made in this process, by kernel: the grid and point
+#: kernels by :func:`scan_cuda`, :func:`scan_batch_cuda` and
+#: :func:`scan_points_cuda`, B6 by ``cuda_solver.solve_cuda``, B8 alone by
+#: ``special_eval.special_eval_cuda``
+LAUNCHES_BY_KERNEL = {**dict.fromkeys(GRID_KERNELS, 0), "B6": 0, "B8": 0}
 
 
 def launches() -> int:
-    """Kernel launches made by :func:`scan_cuda`, :func:`scan_batch_cuda`
-    and :func:`scan_points_cuda` in this process, all kernels together."""
-    return sum(LAUNCHES_BY_KERNEL.values())
+    """Launches of the grid and point kernels (:data:`GRID_KERNELS`: by
+    :func:`scan_cuda`, :func:`scan_batch_cuda` and
+    :func:`scan_points_cuda`) in this process, all together; not B6 or
+    B8."""
+    return sum(LAUNCHES_BY_KERNEL[k] for k in GRID_KERNELS)
 
 
 def _check_model(artifact, kind, args, precision, kinds=KINDS, batch=False):

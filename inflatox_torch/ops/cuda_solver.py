@@ -17,14 +17,21 @@ chain of rows × attempts, not bytes or the f64 rate.
 Beside the kernel:
 
 * :func:`solve_cuda` — the wrapper: on a CUDA device it launches the kernel
-  on the current stream (no synchronisation) and counts the launch in
-  :data:`LAUNCHES`; on a CPU device it runs :func:`solve_torch`.
+  on the current stream (no synchronisation) and counts the launch under
+  ``"B6"`` in :data:`~inflatox_torch.ops.cuda_kernels.LAUNCHES_BY_KERNEL`;
+  on a CPU device it runs :func:`solve_torch`.
 * :func:`solve_torch` — the plain PyTorch version: the same loop over the
   whole batch in torch ops, with masked attempts until every trajectory has
   accepted its row (an accepted trajectory is frozen, so each follows its
   own while-loop sequence).  It reads ``.any()`` on the host once per
   attempt, which makes it slow on the card; it is the reference.
 * :func:`derivative`, :func:`rk_step`, :func:`embedded` — its stages.
+* :func:`attempt_counts` — B6's work while a profiler records
+  (``utils.profiling.recording``): the attempts of every trajectory solved
+  in that time, summed, and the lanes' attempts, each warp's most times its
+  lanes that hold a trajectory.  Only then does the wrapper launch the
+  kernel's counting instance, and the plain version add its attempts; a
+  run with no profiler launches the kernel that counts nothing.
 
 Both write (steps, 2n+2, B) with the trajectory index fastest and return
 (B, steps, 2n+1) rows and (B, steps) times as views of it.  Every operation
@@ -42,8 +49,10 @@ import numpy as np
 import torch
 
 from ..lowering.special import suppress_domain_warnings
+from ..utils.profiling import recording
+from .cuda_kernels import LAUNCHES_BY_KERNEL
 
-__all__ = ["LAUNCHES", "METHODS", "derivative", "embedded", "rk_step",
+__all__ = ["METHODS", "attempt_counts", "derivative", "embedded", "rk_step",
            "solve_cuda", "solve_torch"]
 
 # Fehlberg 4(5) and classical RK4 (inflatox_tpu/background.py:66-84)
@@ -68,8 +77,9 @@ _DT_FLOOR = 1e-250  # bail-out: forcibly accept rather than loop forever
 #: solver name → (kernel method id in csrc/solver.cuh, stages)
 METHODS = {"rkf": (0, 6), "rk4": (1, 4)}
 
-#: number of kernel launches made by :func:`solve_cuda` in this process
-LAUNCHES = 0
+#: device → its (attempts, lane_attempts) int64 tensor, made on the first
+#: solve there under a profiler
+_COUNTS: dict = {}
 
 #: on the CPU the plain version pads its batch to whole multiples of this
 #: many trajectories (copies of the last): torch's CPU kernels run a
@@ -160,6 +170,28 @@ def _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver
     return steps, max_err
 
 
+def _counts(device) -> torch.Tensor:
+    counts = _COUNTS.get(device)
+    if counts is None:
+        counts = _COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return counts
+
+
+def attempt_counts() -> dict:
+    """B6's work over the solves made while a profiler recorded, in this
+    process: ``attempts`` (every trajectory's attempts, accepted and
+    rejected, summed; the kernel's and the plain version's) and
+    ``lane_attempts`` (the kernel's warps: lanes that hold a trajectory ×
+    the most attempts one of them made, summed).  One device→host read a
+    device that solved."""
+    total = [0, 0]
+    for counts in _COUNTS.values():
+        attempts, lanes = counts.tolist()
+        total[0] += attempts
+        total[1] += lanes
+    return {"attempts": total[0], "lane_attempts": total[1]}
+
+
 def _views(out, ny):
     """(B, steps, 2n+1) rows and (B, steps) times of a (steps, 2n+2, B)
     output."""
@@ -175,9 +207,11 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
     (k,) shared or (B, k) per-trajectory parameters, on the same device.
     Returns ``(rows, times)`` — (B, steps, 2n+1) and (B, steps) — and, with
     ``count_attempts=True``, also the (B,) number of attempts each
-    trajectory made over its steps − 1 rows.  On the CPU each trajectory's
+    trajectory made over its steps − 1 rows; while a profiler records, their
+    sum goes to :func:`attempt_counts`.  On the CPU each trajectory's
     arithmetic does not depend on its place in the batch (``_CPU_LANES``)."""
     _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver)
+    traced = recording()
     batch = fields_init.shape[0]
     pad = -batch % _CPU_LANES if fields_init.device.type == "cpu" else 0
     if pad:
@@ -189,8 +223,14 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
             pars = padded(pars)
     with suppress_domain_warnings():
         out = _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err,
-                           solver, count_attempts)
-    return tuple(o[:batch] for o in out) if pad else out
+                           solver, count_attempts or traced)
+    if pad:
+        out = tuple(o[:batch] for o in out)
+    if traced:
+        _counts(fields_init.device)[0] += out[2].sum()
+        if not count_attempts:
+            out = out[:2]
+    return out
 
 
 def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, solver,
@@ -255,10 +295,9 @@ def solve_cuda(artifact, pars, steps, fields_init, derivatives_init,
 
     On a CUDA device it builds the kernel for the model (first use),
     allocates the (steps, 2n+2, B) output with ``torch.empty`` and launches
-    on the current stream without synchronising; a launch error raises.  On
-    a CPU device it returns :func:`solve_torch`'s result and launches
-    nothing."""
-    global LAUNCHES
+    on the current stream without synchronising, the counting instance
+    while a profiler records; a launch error raises.  On a CPU device it
+    returns :func:`solve_torch`'s result and launches nothing."""
     steps, max_err = _check(artifact, pars, steps, fields_init, derivatives_init,
                             max_err, solver)
     device = fields_init.device
@@ -277,14 +316,15 @@ def solve_cuda(artifact, pars, steps, fields_init, derivatives_init,
         d0 = derivatives_init.contiguous()
         p = pars.contiguous()
         out = torch.empty((steps, ny + 1, batch), dtype=torch.float64, device=device)
+        counts = _counts(device).data_ptr() if recording() else None
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.inflx_solve(
             METHODS[solver][0], f0.data_ptr(), d0.data_ptr(),
             p.data_ptr() if p.numel() else None, p.shape[1] if p.ndim == 2 else 0,
-            out.data_ptr(), batch, steps, max_err, 1.0 / max_err, stream,
+            out.data_ptr(), batch, steps, max_err, 1.0 / max_err, stream, counts,
         )
     if err != 0:
         msg = lib.inflx_error_string(err).decode()
         raise RuntimeError(f"solver kernel launch failed: CUDA error {err} ({msg})")
-    LAUNCHES += 1
+    LAUNCHES_BY_KERNEL["B6"] += 1
     return _views(out, ny)

@@ -12,7 +12,9 @@ against :mod:`inflatox_torch.lowering.special` on the card and time it.
   order of ``INFLX_SF_INSTANCES`` in ``csrc/special_eval.cu``;
 * :func:`special_eval_cuda` — on a CUDA tensor it launches the instance's
   kernel on the current stream (no synchronisation) and counts the launch
-  in :data:`LAUNCHES`; on a CPU tensor it returns the plain version;
+  under ``"B8"`` in
+  :data:`~inflatox_torch.ops.cuda_kernels.LAUNCHES_BY_KERNEL`; on a CPU
+  tensor it returns the plain version;
 * :func:`special_eval_torch` — the plain version.
 """
 
@@ -21,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from ..lowering import special as sp
+from .cuda_kernels import LAUNCHES_BY_KERNEL
 
-__all__ = ["INSTANCES", "LAUNCHES", "special_eval_cuda", "special_eval_torch"]
+__all__ = ["INSTANCES", "special_eval_cuda", "special_eval_torch"]
 
 
 def _orders(name, fn, orders):
@@ -55,10 +58,6 @@ INSTANCES = {
     "gamma": lambda z, p: sp.gamma(z),
     **_orders("polygamma", sp.polygamma, range(4)),
 }
-
-#: launches of the special_eval kernels made by :func:`special_eval_cuda`
-LAUNCHES = {"B8": 0}
-
 
 def _check(name, z, p):
     if name not in INSTANCES:
@@ -102,5 +101,5 @@ def special_eval_cuda(name: str, z: torch.Tensor, p=()) -> torch.Tensor:
     if err != 0:
         msg = lib.inflx_error_string(err).decode()
         raise RuntimeError(f"special-function kernel {name} launch failed: CUDA error {err} ({msg})")
-    LAUNCHES["B8"] += 1
+    LAUNCHES_BY_KERNEL["B8"] += 1
     return out

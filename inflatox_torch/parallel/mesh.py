@@ -25,7 +25,9 @@ slice of one pinned host buffer behind an event, a result left on the
 device is assembled on the mesh's first device of this process
 (``home``).  Each
 slot's engine resolves by its own device (a CUDA slot runs the kernel, a
-CPU slot the plain version); nothing moves to the CPU.
+CPU slot the plain version); nothing moves to the CPU.  Spans
+(``utils.profiling``): ``inflx.shards.stage``, a shard's copies to the host
+and their event; ``inflx.shards.wait``, the wait for them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import contextlib
 
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate
 
 __all__ = ["Mesh", "make_mesh", "default_mesh"]
 
@@ -205,6 +209,7 @@ class _HostJoin:
                                              pin_memory=pin))
         return self.full
 
+    @annotate("inflx.shards.stage")
     def put(self, i: int, parts: tuple) -> None:
         device = parts[0].device
         meta = [(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in parts]
@@ -267,7 +272,8 @@ def gather_shards(mesh: Mesh, launched: dict) -> tuple:
     ``dim``: numpy arrays (``host``) or tensors on ``mesh.home``."""
     join, n, dim = launched["join"], launched["n"], launched["dim"]
     if join is not None:
-        join.wait()
+        with annotate("inflx.shards.wait"):
+            join.wait()
         if mesh.multi_process:
             _exchange(mesh, join)
         if launched["host"]:

@@ -43,6 +43,13 @@ stream.  At most one checkpoint write is queued behind the one being
 written: where writes are the slower side, the loop waits for the writer
 instead of piling chunk results up in memory (with full maps in chunks of 8
 that was also 1.48× faster on an H100's host, PERF.md).
+
+Spans of the chunk loop, per chunk and slot (``utils.profiling``):
+``inflx.sweep.launch`` (the batched scan), ``inflx.sweep.reduce``
+(``vmap(reduce_fn)``), ``inflx.shards.stage`` and ``inflx.shards.wait``
+(``mesh.py``: the copies to the host and the wait for them),
+``inflx.sweep.store`` (the copy into the numpy result) and
+``inflx.sweep.write`` (the checkpoint file, on the writer thread).
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from ..ops.cuda_kernels import (
 from ..ops.dd import DD
 from ..utils.devices import resolve_engine, resolve_precision
 from ..utils.logging import Progress
+from ..utils.profiling import annotate
 from .mesh import (
     Mesh,
     agree,
@@ -171,6 +179,7 @@ def _sweep_manifest(args_batch, extent, shape, chunk_size, engine, reduce_fn, ki
     return {"sha256": h.hexdigest(), **meta}
 
 
+@annotate("inflx.sweep.write")
 def _atomic_save(path: str, arr: np.ndarray) -> None:
     """np.save through a temp file and a rename, so a kill during the write
     never leaves a truncated ``chunk_*.npy`` (an absent chunk is recomputed
@@ -470,13 +479,17 @@ def parameter_sweep(
         padded = pad_rows(part, local * n_dev)
 
         def launch(i, device):
-            eng = resolve_engine(engine, device, kernel)
-            scan = scan_batch_cuda if eng == "cuda" else scan_batch_torch
-            out = scan(model, scan_kind, padded[i * local:(i + 1) * local], extent, shape,
-                       device, precision)
-            if kind == "flag_quantum_dif":
-                out = (out.abs() <= acc).all(dim=1, keepdim=True)
-            return (out if reduce is None else reduce(out),)
+            with annotate("inflx.sweep.launch"):
+                eng = resolve_engine(engine, device, kernel)
+                scan = scan_batch_cuda if eng == "cuda" else scan_batch_torch
+                out = scan(model, scan_kind, padded[i * local:(i + 1) * local], extent, shape,
+                           device, precision)
+                if kind == "flag_quantum_dif":
+                    out = (out.abs() <= acc).all(dim=1, keepdim=True)
+            if reduce is not None:
+                with annotate("inflx.sweep.reduce"):
+                    out = reduce(out)
+            return (out,)
 
         return launch_shards(mesh, slots, launch, True)
 
@@ -501,9 +514,10 @@ def parameter_sweep(
 
     def store(lo, arr):
         nonlocal result
-        if result is None:
-            result = np.empty((S, *arr.shape[1:]), dtype=arr.dtype)
-        result[lo:lo + len(arr)] = arr
+        with annotate("inflx.sweep.store"):
+            if result is None:
+                result = np.empty((S, *arr.shape[1:]), dtype=arr.dtype)
+            result[lo:lo + len(arr)] = arr
         return result[lo:lo + len(arr)]
 
     def finish(lo, shards, n_keep, path, writer):

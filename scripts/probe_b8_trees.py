@@ -234,7 +234,7 @@ def main():
     def solve(tree):
         err = libs[tree, "S2 solver"].inflx_solve(
             0, f0.data_ptr(), d0.data_ptr(), args64.data_ptr(), 0, solve_out.data_ptr(), batch,
-            steps, 1e-6, 1e6, torch.cuda.current_stream().cuda_stream)
+            steps, 1e-6, 1e6, torch.cuda.current_stream().cuda_stream, None)
         assert err == 0, err
         return solve_out
 

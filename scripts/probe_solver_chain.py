@@ -467,10 +467,11 @@ def main():
     latency_libs = {name: libs.pop((name, "latency")) for name in list(trees)
                     if (name, "latency") in libs}
     for (name, what), lib in libs.items():
-        fn = lib.inflx_solve if what == "lib" else lib.probe_solve
-        fn.argtypes = _SOLVE_ARGS + ([ctypes.c_void_p] if what != "lib" else []) + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        if what == "lib":
+            build._bind_solver(lib)
+        else:
+            lib.probe_solve.argtypes = _SOLVE_ARGS + [ctypes.c_void_p, ctypes.c_void_p]
+            lib.probe_solve.restype = ctypes.c_int
 
     device = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -506,10 +507,13 @@ def main():
             out = torch.empty((steps, 6, batch), dtype=torch.float64, device=device)
 
             def run(lib, what, cycles=None, batch=batch, out=out):
-                fn = lib.inflx_solve if what == "lib" else lib.probe_solve
-                extra = [] if cycles is None else [cycles.data_ptr()]
-                err = fn(method, f0.data_ptr(), d0.data_ptr(), p.data_ptr(), 0, out.data_ptr(),
-                         batch, steps, 1e-6, 1e6, *extra, torch.cuda.current_stream().cuda_stream)
+                stream = torch.cuda.current_stream().cuda_stream
+                args = (method, f0.data_ptr(), d0.data_ptr(), p.data_ptr(), 0, out.data_ptr(),
+                        batch, steps, 1e-6, 1e6)
+                if what == "lib":  # no work counter
+                    err = lib.inflx_solve(*args, stream, None)
+                else:
+                    err = lib.probe_solve(*args, cycles.data_ptr(), stream)
                 assert err == 0, err
 
             rows = {}

@@ -7,8 +7,8 @@ time them.
 Each example runs once through its ``main(["--device", DEVICE])`` at its
 default (full) sizes, its standard output captured; one JSON line per
 example: its wall time on the host clock, the kernel launches it made by
-kernel (``ops/cuda_kernels.LAUNCHES_BY_KERNEL``; B6 from
-``ops/cuda_solver.LAUNCHES``) and its last printed line.  ``chip_smoke.py``
+kernel (``ops/cuda_kernels.LAUNCHES_BY_KERNEL``) and its last printed
+line.  ``chip_smoke.py``
 phase 32 runs the same on the card after building every example's kernel
 libraries at once (``libraries``).
 """
@@ -70,18 +70,16 @@ def libraries(name, module):
 
 
 def reset_counts():
-    from inflatox_torch.ops import cuda_kernels, cuda_solver
+    from inflatox_torch.ops import cuda_kernels
 
     for key in cuda_kernels.LAUNCHES_BY_KERNEL:
         cuda_kernels.LAUNCHES_BY_KERNEL[key] = 0
-    cuda_solver.LAUNCHES = 0
 
 
 def counts():
-    from inflatox_torch.ops import cuda_kernels, cuda_solver
+    from inflatox_torch.ops import cuda_kernels
 
-    return {**{k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v},
-            **({"B6": cuda_solver.LAUNCHES} if cuda_solver.LAUNCHES else {})}
+    return {k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v}
 
 
 def run(name, module, device):

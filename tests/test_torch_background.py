@@ -37,7 +37,7 @@ import inflatox_torch
 import inflatox_tpu
 from inflatox_torch import background as tb
 from inflatox_torch.consistency_conditions import GeneralisedAL
-from inflatox_torch.ops import cuda_solver
+from inflatox_torch.ops import cuda_kernels, cuda_solver
 from inflatox_torch.ops.build import CSRC
 from inflatox_torch.ops.cuda_solver import (
     derivative,
@@ -393,14 +393,14 @@ def test_devices_and_engines(models, monkeypatch):
 def test_solve_cuda_on_cpu_is_the_plain_version_and_never_launches(models):
     _, art, args = models["three"]
     f0, d0 = _inits(4, 3)
-    before = cuda_solver.LAUNCHES
+    before = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     for solver in ("rkf", "rk4"):
         got = solve_cuda(art, _t(args), 30, _t(f0), _t(d0), 1e-6, solver)
         want = solve_torch(art, _t(args), 30, _t(f0), _t(d0), 1e-6, solver)
         assert got[0].shape == (4, 30, 7) and got[1].shape == (4, 30)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     tb.survey_initial_conditions(art, args, 30, f0, np.zeros(3), device="cpu")
-    assert cuda_solver.LAUNCHES == before
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before
     rows, times, attempts = solve_torch(art, _t(args), 30, _t(f0), _t(d0),
                                         count_attempts=True)
     assert attempts.shape == (4,) and bool((attempts >= 29).all())

@@ -12,9 +12,15 @@ Tolerance: rtol 5e-10 with identical NaN/±inf masks for the analysis maps
 rtol 1e-12 with identical NaN masks for the solver's rows and times (B6).
 Each kernel repeats its plain version's operations in their order, so both
 are expected to agree exactly; the batched kernels B7a, B7b and B7d are held
-to that: bit for bit their plain version, and each set its single scan."""
+to that: bit for bit their plain version, and each set its single scan.
+B6's work counter (on while a profiler records) moves no bit of its rows,
+counts the plain version's attempts exactly, and leaves the instance that
+counts nothing as ptxas built it before the counter existed; the program's
+spans and the counter land in a ``profiling.trace`` of the card."""
 
+import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -160,10 +166,10 @@ def test_solver_kernel_matches_plain_torch(doc, cuda_device, solver, per_traject
     f0, d0 = _inits(96, 2)
     pars = (torch.linspace(0.5, 2.0, 96, dtype=torch.float64, device="cuda")[:, None]
             if per_trajectory else torch.tensor(args, device="cuda"))
-    before = cuda_solver.LAUNCHES
+    before = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     rows, times = solve_cuda(art, pars, 120, f0, d0, 1e-6, solver)
     torch.cuda.synchronize()
-    assert cuda_solver.LAUNCHES == before + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 1
     assert rows.shape == (96, 120, 5) and times.shape == (96, 120)
     want_rows, want_times = solve_torch(art, pars, 120, f0, d0, 1e-6, solver)
     assert_rows_equal(rows, want_rows)
@@ -190,15 +196,15 @@ def test_background_entry_points_run_the_kernels(doc, cuda_device):
     art, args = doc
     f0 = np.random.default_rng(3).uniform(1.5, 2.5, (40, 2))
     d0 = np.zeros((40, 2))
-    before = cuda_solver.LAUNCHES
+    before = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     rows, times = background.solve_eom_batch(art, args, 60, f0, d0, solver="rkf",
                                              return_time=True)
     single = background.solve_eom(art, args, 60, f0[0], d0[0], solver="rkf")
     survey = background.survey_initial_conditions(art, args, 60, f0, np.zeros(2), chunk=16)
-    assert cuda_solver.LAUNCHES == before + 2 + 3
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 2 + 3
     plain = background.solve_eom_batch(art, args, 60, f0, d0, solver="rkf",
                                        return_time=True, engine="torch")
-    assert cuda_solver.LAUNCHES == before + 5
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 5
     np.testing.assert_array_equal(rows, plain[0])
     np.testing.assert_array_equal(times, plain[1])
     np.testing.assert_array_equal(single, rows[0])
@@ -420,9 +426,9 @@ def test_b8_alone_matches_plain_torch(cuda_device, dtype):
         z = torch.empty(1 << 16, dtype=torch.float64, device=cuda_device).uniform_(
             lo, hi, generator=gen).to(dtype)
         params = _B8_PARAMS.get(name, ())
-        before = special_eval.LAUNCHES["B8"]
+        before = cuda_kernels.LAUNCHES_BY_KERNEL["B8"]
         got = special_eval.special_eval_cuda(name, z, params)
-        assert special_eval.LAUNCHES["B8"] == before + 1
+        assert cuda_kernels.LAUNCHES_BY_KERNEL["B8"] == before + 1
         want = special_eval.special_eval_torch(name, z, params)
         assert_maps_close(got.double(), want.double(),
                           5e-10 if dtype == torch.float64 else 1e-5)
@@ -484,7 +490,7 @@ def test_b8_inside_the_grid_point_and_solver_kernels(cuda_device):
     args, extent = np.array([2.0]), (0.5, 3.0, 0.2, 1.5)
     assert art.uses_special_functions
     before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
-    solves = cuda_solver.LAUNCHES
+    solves = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     got = scan_cuda(art, "complete_analysis", args, extent, (256, 256), cuda_device)
     assert_maps_close(got, scan_torch(art, "complete_analysis", args, extent, (256, 256),
                                       cuda_device))
@@ -499,7 +505,7 @@ def test_b8_inside_the_grid_point_and_solver_kernels(cuda_device):
                       torch.cat([p_rows, p_t[..., None]], -1), 1e-12)
     after = cuda_kernels.LAUNCHES_BY_KERNEL
     assert (after["B1"] - before["B1"], after["B5a"] - before["B5a"]) == (1, 1)
-    assert cuda_solver.LAUNCHES == solves + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == solves + 1
 
 
 @pytest.mark.parametrize("n", [1, 33, 4096, 300_000])
@@ -602,11 +608,11 @@ def test_observables_on_the_card_match_the_cpu(doc, quadratic, cuda_device):
            ob.fisher_matrix(quadratic, x, m, [0.004, 0.01], device="cpu"), 1e-10)
 
     # the trajectory level on kernel B6's rows, read by both devices
-    solves = cuda_solver.LAUNCHES
+    solves = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     rows, times = background.solve_eom(quadratic, np.ones(2), 3000, [16.0, 0.0], [0.0, 0.0],
                                        max_err=1e-9, solver="rkf", return_time=True,
                                        device=cuda_device)
-    assert cuda_solver.LAUNCHES == solves + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == solves + 1
     for call in (
         lambda dev: ob.along_trajectory(quadratic, rows, np.ones(2), device=dev),
         lambda dev: ob.horizon_exit(quadratic, rows, times, np.ones(2), device=dev),
@@ -657,11 +663,11 @@ def test_spectra_on_the_card_match_the_cpu(quadratic, cuda_device):
     rows, times = background.solve_eom(quadratic, m, 2000, [12.0, 0.0], [0.0, 0.0],
                                        max_err=1e-9, solver="rkf", return_time=True,
                                        device=cuda_device)
-    solves = cuda_solver.LAUNCHES
+    solves = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     kw = dict(pivots=3, N_margin_start=5.0, N_margin_end=8.0, steps=2000, order=2)
     dn = {dev: pt.delta_n_spectrum(quadratic, m, rows, times, device=dev, **kw)
           for dev in ("cuda", "cpu")}
-    assert cuda_solver.LAUNCHES == solves + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == solves + 1
     for key, rtol in (("P_zeta", 1e-6), ("N_grad", 1e-6), ("N_hess", 1e-4), ("f_NL", 1e-4)):
         want = dn["cpu"][key]
         np.testing.assert_allclose(dn["cuda"][key], want, rtol=rtol,
@@ -675,10 +681,10 @@ def test_spectra_on_the_card_match_the_cpu(quadratic, cuda_device):
         for k in on_cpu:
             np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-10, atol=1e-12,
                                        err_msg=k)
-    solves = cuda_solver.LAUNCHES
+    solves = cuda_kernels.LAUNCHES_BY_KERNEL["B6"]
     sw = pt.mode_sweep(quadratic, np.array([[1.0, 1.0], [1.05, 1.0]]), [12.0, 0.0],
                        [0.0, 0.0], steps=2000, device="cuda", **small)
-    assert cuda_solver.LAUNCHES == solves + 1 and sw["ok"].all()
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == solves + 1 and sw["ok"].all()
 
 
 def test_posterior_on_the_card_matches_the_cpu(quadratic, cuda_device):
@@ -768,3 +774,99 @@ def test_engines_tour_example_on_the_card(cuda_device):
     assert rows["f32"]["median_dev"] < 1e-5
     np.testing.assert_allclose(out["pair_value"], rows["f64"]["maps"][0, 0, 0],
                                rtol=2.0**-48, atol=0)
+
+
+#: ptxas's (registers, spill store bytes, spill load bytes) of kernel B6's
+#: instances that count nothing, for the doc model, as the tree before the
+#: work counter built them (commit 821aba5; nvcc 12.9, ``-Xptxas=-v``,
+#: sm_90a)
+B6_PTXAS_BEFORE_THE_COUNTER = {"rkf": (122, 0, 0), "rk4": (128, 0, 0)}
+
+
+def ptxas_entries(log: str) -> dict:
+    """Mangled entry name → (registers, spill store bytes, spill load bytes)
+    from ptxas's ``-v`` report."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            entries[name] = [None, None, None]
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and name:
+            entries[name][1:] = [int(found.group(1)), int(found.group(2))]
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            entries[name][0] = int(found.group(1))
+    return {k: tuple(v) for k, v in entries.items()}
+
+
+def test_b6_uncounted_instance_compiles_as_before_the_counter(doc, cuda_device):
+    from inflatox_torch.ops.build import load_solver
+
+    art, _ = doc
+    entries = ptxas_entries(load_solver(art.cuda_solver_source()).build_log.read_text())
+    for solver, (method, _) in cuda_solver.METHODS.items():
+        (uncounted,) = [v for k, v in entries.items() if f"solve_kernelILi{method}ELb0E" in k]
+        (counted,) = [v for k, v in entries.items() if f"solve_kernelILi{method}ELb1E" in k]
+        print(f"B6 {solver} ptxas (registers, spill stores, spill loads): "
+              f"uncounted {uncounted}, counted {counted}")
+        assert uncounted == B6_PTXAS_BEFORE_THE_COUNTER[solver], solver
+
+
+@pytest.mark.parametrize("solver", ["rkf", "rk4"])
+def test_b6_counter_moves_no_row_and_counts_the_plain_attempts(doc, cuda_device, solver):
+    """200 trajectories (a last warp of 8 lanes): the counted launch's rows
+    bit for bit the uncounted launch's and the plain version's, its
+    attempts the plain version's sum, its lane attempts each warp's most
+    attempts times its lanes."""
+    art, args = doc
+    f0, d0 = _inits(200, 2, seed=4)
+    pars = torch.tensor(args, device="cuda")
+    plain_rows, plain_times, attempts = solve_torch(art, pars, 150, f0, d0, 1e-6, solver,
+                                                    count_attempts=True)
+    rows, times = solve_cuda(art, pars, 150, f0, d0, 1e-6, solver)
+    before = cuda_solver.attempt_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        counted_rows, counted_times = solve_cuda(art, pars, 150, f0, d0, 1e-6, solver)
+        torch.cuda.synchronize()
+    after = cuda_solver.attempt_counts()
+    for got in (counted_rows, plain_rows):
+        assert torch.equal(got.view(torch.int64), rows.view(torch.int64))
+    for got in (counted_times, plain_times):
+        assert torch.equal(got.view(torch.int64), times.view(torch.int64))
+    assert after["attempts"] - before["attempts"] == int(attempts.sum())
+    warps = sum(len(w) * int(w.max()) for w in attempts.split(32))
+    assert after["lane_attempts"] - before["lane_attempts"] == warps
+    assert int(attempts.sum()) <= warps
+    solve_cuda(art, pars, 150, f0, d0, 1e-6, solver)
+    torch.cuda.synchronize()
+    assert cuda_solver.attempt_counts() == after
+
+
+def test_spans_and_the_b6_counter_in_a_trace_of_the_card(doc, cuda_device, tmp_path):
+    """Under ``profiling.trace`` on the card: ``complete_analysis`` records
+    its launch and delivery spans beside B1's kernel, a survey its solve,
+    reduce and delivery spans beside the counting instance of B6, whose
+    attempts are counted."""
+    from inflatox_torch.utils import profiling
+
+    art, args = doc
+    al = GeneralisedAL(art, device=cuda_device, validate_basis=False)
+    f0 = np.random.default_rng(9).uniform(1.5, 2.5, (64, 2))
+    al.complete_analysis(args, *DOC_EXTENT, 64, 64, progress=False)  # builds outside
+    background.survey_initial_conditions(art, args, 80, f0, np.zeros(2))
+    before = cuda_solver.attempt_counts()
+    with profiling.trace(str(tmp_path), label="card"):
+        al.complete_analysis(args, *DOC_EXTENT, 64, 64, progress=False)
+        background.survey_initial_conditions(art, args, 80, f0, np.zeros(2))
+    assert cuda_solver.attempt_counts()["attempts"] > before["attempts"]
+    (path,) = tmp_path.glob("card*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e["name"] for e in sorted(events, key=lambda e: float(e.get("ts", 0)))
+             if e.get("cat") == "user_annotation" and e["name"].startswith("inflx.")]
+    assert spans == ["inflx.scan.launch", "inflx.scan.deliver", "inflx.survey.solve",
+                     "inflx.survey.reduce", "inflx.survey.deliver"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("grid_scan_kernel" in k for k in kernels)
+    assert any("solve_kernel" in k for k in kernels)
