@@ -914,6 +914,64 @@ def solve_and_check(art, pars, f0, steps, solver, label, max_err=1e-6):
             "n_bytes": n_bytes, "cpu": cpu}
 
 
+def reduce_and_check(art, rows, times, pars, label):
+    """Kernel B9 on B6's ``rows`` and ``times`` (views of one B6 output on
+    the card), counted, then its five summaries against the plain
+    reduction on the host's CPU from the same rows, bit for bit with NaN in
+    the same places; then B9 and the plain reduction on the card timed in
+    turns, B9's device time from the profiler, and its bound (it reads
+    every row and time once).  Returns a dict for the kernel table."""
+    import numpy as np
+    import torch
+
+    from inflatox_torch.ops import cuda_kernels
+    from inflatox_torch.ops.cuda_survey import survey_reduce_cuda, survey_reduce_torch
+
+    cuda_kernels.LAUNCHES_BY_KERNEL["B9"] = 0
+    got = survey_reduce_cuda(art, rows, times, pars)
+    torch.cuda.synchronize()
+    launches = cuda_kernels.LAUNCHES_BY_KERNEL["B9"]
+    check(launches == 1, f"{label}: {launches} B9 launches, expected 1")
+    t = time.perf_counter()
+    want = survey_reduce_torch(art, rows.cpu(), times.cpu(), pars.cpu())
+    cpu_s = time.perf_counter() - t
+    max_abs = 0.0
+    for name, g, w in zip(("N_inflation", "ended", "H_end", "x_end", "N_span"), got, want):
+        g, w = g.cpu().numpy(), w.numpy()
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{label}: {name} shape or dtype")
+        if g.dtype == bool:
+            check(np.array_equal(g, w), f"{label}: {name} differs")
+            continue
+        nan = np.isnan(w)
+        check(np.array_equal(np.isnan(g), nan), f"{label}: {name} NaN masks differ")
+        check(np.array_equal(g[~nan].view(np.int64), w[~nan].view(np.int64)),
+              f"{label}: {name} not bit for bit the host's plain reduction")
+        if (~nan).any():
+            max_abs = max(max_abs, float(np.abs(g[~nan] - w[~nan]).max()))
+    ended = want[1].double().mean().item()
+    check(ended > 0.5, f"{label}: only {ended:.4f} of the trajectories ended")
+
+    def kernel():
+        survey_reduce_cuda(art, rows, times, pars)
+
+    def plain():
+        survey_reduce_torch(art, rows, times, pars)
+
+    ms, plain_ms, windows = in_turns(kernel, plain, N_TIMED_KERNEL, N_TIMED)
+    traced = profiled_ms(kernel, "survey_reduce_kernel", N_TIMED)
+    batch, steps, ny = rows.shape
+    n_bytes = batch * steps * (ny + 1) * 8
+    b9_bound = bound(n_bytes, 0)
+    print(f"{label}: five summaries bit for bit the plain reduction on the host's CPU "
+          f"({cpu_s:.2f} s there), ended {ended:.4f}; on the card kernel {ms:.4f} ms "
+          f"(torch.profiler {traced}), plain torch {plain_ms:.4f} ms (windows "
+          + ", ".join(f"{w:.4f}" for w in windows) + f"; {N_TIMED_KERNEL} and {N_TIMED} "
+          "chained calls); "
+          f"bound {b9_bound[0]:.4f} ms ({b9_bound[1]}; {n_bytes} bytes read)")
+    return {"launches": launches, "max_abs": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound": b9_bound}
+
+
 def cpu_rows_check(kc, kt, cpu_rows, cpu_times, n, label):
     """B6's first trajectories (rows ``kc``, times ``kt``, on the host)
     against the plain version's on the CPU: the times within
@@ -2995,10 +3053,11 @@ def same_bits(got, want, label):
           f"{label}: not bit for bit the unsharded call")
 
 
-def mesh_counted(label, fn, kernel, expected):
+def mesh_counted(label, fn, kernel, expected, also=None):
     """``fn()`` with every launch count set to 0 before and read after:
     fails unless ``kernel`` (a B1-B7 name, "B6", or None for none) was
-    launched ``expected`` times and no other kernel at all."""
+    launched ``expected`` times, the kernels of ``also`` (name → launches)
+    as it says, and no other kernel at all."""
     import torch
 
     from inflatox_torch.ops import cuda_kernels
@@ -3008,7 +3067,7 @@ def mesh_counted(label, fn, kernel, expected):
     out = fn()
     torch.cuda.synchronize()
     counts = {k: v for k, v in cuda_kernels.LAUNCHES_BY_KERNEL.items() if v}
-    want = {kernel: expected} if kernel else {}
+    want = {**({kernel: expected} if kernel else {}), **(also or {})}
     check(counts == want, f"phase 31 {label}: launches {counts}, expected {want}")
     return out
 
@@ -3197,7 +3256,7 @@ def mesh_phase(art, args, al, egno, egno_args, quad, post_art, rkf, pts, device,
                                                         max_err=1e-6, chunk=B_SOLVE, mesh=mesh,
                                                         device=device)
 
-        got = mesh_counted(name, survey, "B6", slots)
+        got = mesh_counted(name, survey, "B6", slots, also={"B9": 1})  # B9 on mesh.home
         want = background.survey_initial_conditions(art, args, STEPS, f0s[:b], np.zeros(2),
                                                     max_err=1e-6, chunk=B_SOLVE, device=device)
         for key in want:
@@ -3205,8 +3264,8 @@ def mesh_phase(art, args, al, egno, egno_args, quad, post_art, rkf, pts, device,
         ms = host_clock_ms(survey)
         single_ms = host_clock_ms(lambda b=b: background.survey_initial_conditions(
             art, args, STEPS, f0s[:b], np.zeros(2), max_err=1e-6, chunk=B_SOLVE, device=device))
-        record(name, ms, single_ms, {"B6": slots})
-        print(f"{name} on {card}: {slots} B6 launch(es), all five outputs bit for bit; "
+        record(name, ms, single_ms, {"B6": slots, "B9": 1})
+        print(f"{name} on {card}: {slots} B6 launch(es) and one B9, all five outputs bit for bit; "
               f"{ms:.1f} ms against {single_ms:.1f} ms unsharded (host clock, median of 3)")
 
     # the spectra: phase 29's quadratic model, one set, 8 pivots, a 2-slot
@@ -3696,16 +3755,19 @@ def main() -> int:
     b5_launches, b5_max_abs = points_and_check(
         al, art, args, pts, f"B5 hyperinflation {pts.shape[0]} solved points")
 
-    # 10. the basin survey at cfg5e's size
+    # 10. the basin survey at cfg5e's size (B6 and kernel B9, its reduction)
     rng = np.random.default_rng(1)
     f0s = np.stack([rng.uniform(1.5, 2.5, B_SOLVE), rng.uniform(1.5, 2.5, B_SOLVE)], 1)
     cuda_kernels.LAUNCHES_BY_KERNEL["B6"] = 0
+    cuda_kernels.LAUNCHES_BY_KERNEL["B9"] = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
                                                   max_err=1e-6, chunk=B_SOLVE)
     survey_s = time.perf_counter() - t
     check(cuda_kernels.LAUNCHES_BY_KERNEL["B6"] > 0, "survey: no kernel launched")
+    b9_launches = cuda_kernels.LAUNCHES_BY_KERNEL["B9"]
+    check(b9_launches == 1, f"survey: {b9_launches} B9 launches, expected 1")
     t = time.perf_counter()
     plain_survey = background.survey_initial_conditions(art, args, STEPS, f0s, np.zeros(2),
                                                         max_err=1e-6, chunk=B_SOLVE,
@@ -3722,6 +3784,8 @@ def main() -> int:
           f"{cuda_kernels.LAUNCHES_BY_KERNEL['B6']} kernel launch(es); ended {survey['ended'].mean():.4f}, "
           f"median N_inflation {np.nanmedian(survey['N_inflation']):.4f}; all five outputs "
           f"equal engine='torch' on the card ({plain_survey_s:.2f} s)")
+    b9 = reduce_and_check(art, rkf["rows"], rkf["times"], rkf["args"][0],
+                          f"B9 hyperinflation {B_SOLVE}x{STEPS} (phase 8's B6 rows)")
 
     # 11. timing of B6 (the plain version's time is phase 8's one call: two
     # more in turns took over a minute of the run) and of B5, in turns; B6's
@@ -4310,6 +4374,9 @@ def main() -> int:
         row("solver_b6_rk4", "inflatox_torch/csrc/solver.cu",
             "inflatox_tpu/ops/pallas_solver.py:173", rk4["launches"], rk4["max_abs"], rk4_ms,
             rk4_plain_ms, rk4["bound"]),
+        row("survey_reduce_b9", "inflatox_torch/csrc/survey.cuh",
+            "none (inflatox_tpu/background.py:370 _survey_reduce is jitted jnp)",
+            b9_launches + b9["launches"], b9["max_abs"], b9["ms"], b9["plain_ms"], b9["bound"]),
         *timed_rows,
     ]
     old_rows = [k for k in kernels if k["name"] in BEFORE_MS]

@@ -19,7 +19,9 @@ semantics and documented divergences from the reference:
   step-doubling error control.
 
 Every solve runs kernel B6 (:mod:`inflatox_torch.ops.cuda_solver`), the
-hand-written CUDA solver, on a CUDA device, or its plain PyTorch version.
+hand-written CUDA solver, on a CUDA device, or its plain PyTorch version;
+a survey's rows on a CUDA device are reduced by kernel B9
+(:mod:`inflatox_torch.ops.cuda_survey`), on the CPU by its plain version.
 Devices are explicit: every entry takes ``device="cuda"`` by default and
 ``engine=None`` (``"cuda"`` on a CUDA device, ``"torch"`` on a CPU device),
 ``"cuda"`` or ``"torch"``.  ``solver="rkf"`` and ``"rk4"`` both run in the
@@ -38,9 +40,10 @@ import torch
 
 from .compiler import CompiledModel
 from .ops.cuda_solver import solve_cuda, solve_torch
+from .ops.cuda_survey import survey_reduce_cuda
 from .parallel.mesh import check_mesh_device
 from .parallel.solve import sharded_solve_eom_batch
-from .utils.devices import resolve_device, resolve_engine
+from .utils.devices import resolve_device, resolve_engine, upload
 from .utils.errors import ShapeError
 from .utils.profiling import annotate
 
@@ -90,14 +93,12 @@ def _check_batch(artifact, pars, fields_init, derivatives_init):
 def _solve_batch_device(artifact, pars, steps, fields_init, derivatives_init,
                         max_err, solver, device, engine):
     """Batched solve returning (rows, times) tensors left on ``device`` —
-    they feed on-device reductions.  Inputs must be pre-validated."""
+    they feed on-device reductions.  Inputs must be pre-validated; ``pars``
+    may be a float64 tensor on ``device`` already."""
     solve = solve_cuda if engine == "cuda" else solve_torch
-
-    def tensor(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=device)
-
-    return solve(artifact, tensor(pars), int(steps), tensor(fields_init),
-                 tensor(derivatives_init), max_err, solver)
+    p = pars if torch.is_tensor(pars) else upload(pars, device)
+    return solve(artifact, p, int(steps), upload(fields_init, device),
+                 upload(derivatives_init, device), max_err, solver)
 
 
 def _host(rows, times, return_time):
@@ -200,50 +201,14 @@ def solve_eom_batch(
 
 
 def _survey_reduce(artifact, rows, times, pars):
-    """Per-trajectory summary of a batch of solved backgrounds, in torch ops
-    on their device: the e-fold count through inflation (ε_H = 1 crossing,
+    """Per-trajectory summary of a batch of solved backgrounds, on their
+    device: the e-fold count through inflation (ε_H = 1 crossing,
     interpolated), the crossing's H and field point, and the integrated
-    span — (B,) outputs from (B, steps) inputs."""
-    d = artifact.n_fields
-    x = [rows[..., c] for c in range(d)]
-    chi = [rows[..., d + c] for c in range(d)]
-    hub = rows[..., 2 * d]
-    a_in = pars if pars.ndim == 1 else [pars[:, j:j + 1] for j in range(pars.shape[1])]
-    chi_sq = artifact.inner_prod(x, a_in, chi, chi)
-    hdot = -0.5 * chi_sq
-    eps = -hdot / (hub * hub)
-    dt = times[:, 1:] - times[:, :-1]
-    seg = 0.5 * (hub[:, 1:] + hub[:, :-1]) * dt \
-        + (dt * dt / 12.0) * (hdot[:, :-1] - hdot[:, 1:])
-    n = torch.cat([torch.zeros_like(times[:, :1]), torch.cumsum(seg, dim=1)], dim=1)
-    finite = torch.isfinite(eps) & (hub > 0.0)
-    below = finite & (eps < 1.0)
-    inflated = below.any(dim=1)
-    start = torch.argmax(below.to(torch.uint8), dim=1)  # first inflating row
-    idxs = torch.arange(times.shape[1], device=times.device)[None, :]
-    crossing = (idxs > start[:, None]) & finite & (eps >= 1.0)
-    ended = inflated & crossing.any(dim=1)
-    i = torch.clamp_min(torch.argmax(crossing.to(torch.uint8), dim=1), 1)
-
-    def pair(arr):
-        lo = torch.gather(arr, 1, (i - 1)[:, None])[:, 0]
-        hi = torch.gather(arr, 1, i[:, None])[:, 0]
-        return lo, hi
-
-    e0, e1 = pair(eps)
-    frac = torch.where(e1 != e0, (1.0 - e0) / (e1 - e0), 0.0)
-
-    def interp(arr):
-        a0, a1 = pair(arr)
-        return a0 + frac * (a1 - a0)
-
-    n_start = torch.gather(n, 1, start[:, None])[:, 0]
-    nan = torch.full_like(n_start, float("nan"))
-    n_inf = torch.where(ended, interp(n) - n_start, nan)
-    h_end = torch.where(ended, interp(hub), nan)
-    x_end = torch.where(ended[:, None], torch.stack([interp(xc) for xc in x], dim=1),
-                        float("nan"))
-    return n_inf, ended, h_end, x_end, n[:, -1]
+    span — ``(N_inflation, ended, H_end, x_end, N_span)``, (B,) outputs
+    (x_end (B, n)) from (B, steps) inputs.  Rows on a CUDA device go
+    through kernel B9, rows on the CPU through its plain version
+    (:mod:`inflatox_torch.ops.cuda_survey`), whichever engine solved them."""
+    return survey_reduce_cuda(artifact, rows, times, pars)
 
 
 def survey_initial_conditions(
@@ -276,10 +241,18 @@ def survey_initial_conditions(
     Returns a dict of (B,) numpy arrays: ``N_inflation`` (NaN where
     inflation never happens or never ends), ``ended`` (bool), ``H_end``,
     ``x_end`` ((B, n)), ``N_span`` (e-folds over the whole trajectory).
-    Spans per chunk (``utils.profiling``): ``inflx.survey.solve`` (the
-    inputs to the device, the solve's enqueue and the parameters' copy,
-    which waits for the solve), ``inflx.survey.reduce`` and
-    ``inflx.survey.deliver`` (the copies of the summaries to the host).
+
+    On a CUDA device nothing in the chunk loop waits for the card: each
+    chunk's inputs go up through pinned memory, kernel B6 and the
+    reduction (kernel B9, one launch) are enqueued on the stream behind
+    them, and the chunk's summaries, stacked into one (chunk, n+4) tensor,
+    are copied into pinned host memory behind those; the host waits once,
+    after the last chunk's copy is enqueued.  Spans per chunk
+    (``utils.profiling``): ``inflx.survey.solve`` (the inputs' uploads and
+    B6's enqueue; no wait), ``inflx.survey.reduce`` (B9's launch; on the
+    CPU the plain reduction) and ``inflx.survey.deliver`` (the stacking and
+    the copy's enqueue, and in the last chunk the one wait: for B6, the
+    reductions and the copies).
 
     ``solver``: None (``"rkf"``), ``"rkf"`` or ``"rk4"``; ``device``,
     ``engine`` and ``mesh`` as in :func:`solve_eom_batch`."""
@@ -300,11 +273,15 @@ def survey_initial_conditions(
         device = resolve_device(device)
         engine = resolve_engine(engine, device, "kernel B6")
 
-    outs = []
+    d = artifact.n_fields
+    cuda = device.type == "cuda"
+    # per trajectory: N_inflation, ended (0 or 1), H_end, x_end[d], N_span
+    host = torch.empty((B, d + 4), dtype=torch.float64, pin_memory=cuda)
     for c0 in range(0, B, int(chunk)):
         sl = slice(c0, min(B, c0 + int(chunk)))
         p_c = pars if pars.ndim == 1 else pars[sl]
         with annotate("inflx.survey.solve"):
+            p_t = upload(p_c, device)
             if mesh is not None:
                 rows, times = sharded_solve_eom_batch(
                     artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
@@ -313,23 +290,24 @@ def survey_initial_conditions(
                 )
             else:
                 rows, times = _solve_batch_device(
-                    artifact, p_c, steps, fields_init[sl], derivatives_init[sl],
+                    artifact, p_t, steps, fields_init[sl], derivatives_init[sl],
                     max_err, solver, device, engine,
                 )
-            p_t = torch.as_tensor(p_c, dtype=torch.float64, device=device)
         with annotate("inflx.survey.reduce"):
-            summary = _survey_reduce(artifact, rows, times, p_t)
+            n_inf, ended, h_end, x_end, n_span = _survey_reduce(artifact, rows, times, p_t)
         with annotate("inflx.survey.deliver"):
-            outs.append([v.cpu().numpy() for v in summary])
-    n_inf, ended, h_end, x_end, n_span = (
-        np.concatenate([o[j] for o in outs]) for j in range(5)
-    )
+            stacked = torch.cat([n_inf[:, None], ended[:, None], h_end[:, None], x_end,
+                                 n_span[:, None]], dim=1)
+            host[sl].copy_(stacked, non_blocking=True)
+            if cuda and sl.stop == B:
+                torch.cuda.current_stream(device).synchronize()
+    res = host.numpy()
     return {
-        "N_inflation": n_inf,
-        "ended": ended.astype(bool),
-        "H_end": h_end,
-        "x_end": x_end,
-        "N_span": n_span,
+        "N_inflation": res[:, 0].copy(),
+        "ended": res[:, 1] != 0.0,
+        "H_end": res[:, 2].copy(),
+        "x_end": res[:, 3:3 + d].copy(),
+        "N_span": res[:, 3 + d].copy(),
     }
 
 

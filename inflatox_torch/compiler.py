@@ -214,8 +214,9 @@ class CompiledModel:
 
     def cuda_solver_source(self) -> str:
         """The per-model CUDA/C++ header the background-solver kernel
-        includes (``f_eom_h``, ``inflx_deriv`` and ``INFLX_NF``), for any
-        field count, memoised."""
+        includes (``f_eom_h``, ``inflx_deriv``, ``inflx_chi_sq`` for the
+        survey's reduction, and ``INFLX_NF``), for any field count,
+        memoised."""
         if self._cuda_solver_source is None:
             from .lowering.cuda_codegen import generate_solver_header  # noqa: PLC0415
 

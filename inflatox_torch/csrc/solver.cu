@@ -40,6 +40,7 @@
 
 #include "inflx_model.h"
 #include "solver.cuh"
+#include "survey.cuh"
 
 static const int kThreads = 32;
 
@@ -115,6 +116,38 @@ int inflx_solve(int method, const void* fields0, const void* derivs0,
       return (int)cudaErrorInvalidValue;
   }
 #undef INFLX_SOLVE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Launch kernel B9 (survey.cuh), the survey's reduction of one solve's
+// rows, on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a shape it does not take.  rows: (steps,
+// 2 INFLX_NF + 2, n_traj) f64, inflx_solve's output; p, p_stride as for
+// inflx_solve; out: (n_traj, INFLX_NF + 3) f64, per trajectory
+// [N_inflation, H_end, x_end[INFLX_NF], N_span]; ended: (n_traj,) bytes;
+// all on the device.  The block has kSurveyWarps staging warps where
+// the ring of row tiles fits in shared memory, fewer for models with many
+// fields, and kSurveyWarps again, reading in place, where it does not fit
+// with one (any field count runs).
+int inflx_survey_reduce(const void* rows, const void* p, int64_t p_stride,
+                        int64_t n_traj, int64_t steps, void* out, void* ended,
+                        void* stream) {
+  if (n_traj <= 0 || steps < 2) return (int)cudaErrorInvalidValue;
+  const size_t budget = 225 * 1024;  // of the 227 KB a block may have
+  int W = kSurveyWarps;
+  while (W > 1 && inflx_survey_smem(W, true) > budget) --W;
+  const bool ring = inflx_survey_smem(W, true) <= budget;
+  if (!ring) W = kSurveyWarps;
+  const size_t bytes = inflx_survey_smem(W, ring);
+  decltype(&survey_reduce_kernel<true>) kernel =
+      ring ? &survey_reduce_kernel<true> : &survey_reduce_kernel<false>;
+  const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid((unsigned)((n_traj + 31) / 32));
+  kernel<<<grid, (W + 1) * 32, bytes, (cudaStream_t)stream>>>(
+      (const double*)rows, (const double*)p, p_stride, n_traj, steps, (double*)out,
+      (unsigned char*)ended);
   return (int)cudaGetLastError();
 }
 

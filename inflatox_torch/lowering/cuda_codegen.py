@@ -53,6 +53,8 @@ double* xd, const double* p)`` (``xd[i]`` the field velocities), and
     inflx_deriv(.., out)  out[0..n-1] the velocities χ^a, out[n..2n-1] the
                        EoM terms (Γ^a_bc χ^b χ^c + g^ab ∂_b V), out[2n]
                        Ḣ = −½ G_ab χ^a χ^b, from one body
+    inflx_chi_sq       G_ab χ^a χ^b as ``CompiledModel.inner_prod`` forms
+                       it, for the survey's reduction (kernel B9)
 
 Each body is translated from the model's torch lowering
 (:mod:`inflatox_torch.lowering.torch_lowering`) through Python's ``ast``:
@@ -171,7 +173,9 @@ def _is_scalar(node, scalars) -> bool:
 class _Ctx:
     """How to translate: ``rn`` writes sums and products as ``inflx_*``
     calls; ``real`` is ``"double"`` or ``"float"``; ``dd`` translates a
-    tree rewritten by :func:`dd_tree` into double-double; ``values`` holds
+    tree rewritten by :func:`dd_tree` into double-double; ``true_div``
+    divides a tensor by a number as torch does on the CPU (a correctly
+    rounded quotient), not by its reciprocal as on the card; ``values`` holds
     the Python values of the scalar CSE locals (used in float mode);
     ``dag`` hash-conses every operation (:meth:`sub`), and ``names`` maps
     each CSE local to its value there."""
@@ -180,6 +184,7 @@ class _Ctx:
     real: str = "double"
     dd: bool = False
     fast_div: bool = False
+    true_div: bool = False
     scalars: set = field(default_factory=set)
     values: dict = field(default_factory=dict)
     dag: "_Dag" = field(default_factory=lambda: _Dag())
@@ -249,6 +254,8 @@ def _c(node, ctx: _Ctx) -> str:
                     # torch on the card forms the reciprocal from the f64
                     # number and rounds it to f32 once (scripts/probe_f32_scalar_div.py)
                     return _binop(ast.Mult, left, ctx.literal(1.0 / value), ctx.rn)
+                if ctx.true_div:
+                    return f"({left} / {right})"
                 return _binop(ast.Mult, left, f"({one} / {right})", ctx.rn)
             return f"({left} / {right})" if lscalar else ctx.divide(left, right)
         return _binop(type(node.op), left, right, ctx.rn)
@@ -944,13 +951,32 @@ def grid_stage_ops(artifact, precision: str = "f64") -> dict:
     return counts
 
 
+def _emit_chi_sq(artifact) -> str:
+    """``inflx_chi_sq(x, xd, p)``: G_ab(x) xd^a xd^b for the survey's
+    reduction (kernel B9, ``csrc/survey.cuh``), formed as
+    :meth:`CompiledModel.inner_prod` forms it: ``0.0 + g_k·xd_a·xd_b + …``
+    over the metric's nonzero entries in order.  The kernel reproduces the
+    plain reduction on the CPU, so a tensor divided by a number is a
+    division here (``true_div``)."""
+    ctx = _Ctx(rn=True, true_div=True)
+    g = _translate(artifact._metric, ctx)
+    total = "0.0"
+    for k, (a, b) in enumerate(artifact._metric_nonzero):
+        total = f"inflx_add({total}, inflx_mul(inflx_mul({g[k]}, xd[{a}]), xd[{b}]))"
+    return (f"INFLX_FN double inflx_chi_sq({_SOLVER_SLOTS}) {{\n  (void)x; (void)xd; (void)p;\n"
+            + _lines(ctx.dag, ctx.dag.closure(g), "double")
+            + f"  return {total};\n}}\n\n")
+
+
 def generate_solver_header(artifact) -> str:
     """Emit the background-solver header for a :class:`CompiledModel` with
-    any number of fields: ``f_eom_h`` and ``inflx_deriv``."""
+    any number of fields: ``f_eom_h``, ``inflx_deriv`` and
+    ``inflx_chi_sq``."""
     include = _SPECIAL_INCLUDE if artifact.uses_special_functions else ""
     return (
         _prelude(rn=True, include=include)
         + f"#define INFLX_NF {artifact.n_fields}\n\n"
         + _emit_eom_h(artifact)
+        + _emit_chi_sq(artifact)
         + _emit_deriv(artifact)
     )

@@ -7,9 +7,10 @@ Two libraries, each built per model from its sources in
   and :meth:`~inflatox_torch.compiler.CompiledModel.cuda_source`), one per
   (model, precision), 2-field models: kernels B1, B7a and B5a in f64, B2
   and B7b in f32, B4, B7d and B5b in double-double;
-* the solver library (``solver.cu``, ``solver.cuh`` and
+* the solver library (``solver.cu``, ``solver.cuh``, ``survey.cuh`` and
   :meth:`~inflatox_torch.compiler.CompiledModel.cuda_solver_source`):
-  kernel B6, any field count.
+  kernel B6 and the survey's reduction of its rows, kernel B9, any field
+  count.
 
 Both include ``special.cuh`` (kernel B8, the special functions), which the
 generated headers call; its sums and products are non-fusing intrinsics,
@@ -194,6 +195,17 @@ def _bind_solver(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,    # counts, (attempts, lane_attempts) u64 (device), or None
     ]
     lib.inflx_solve.restype = ctypes.c_int
+    lib.inflx_survey_reduce.argtypes = [
+        ctypes.c_void_p,    # rows, (steps, 2 NF + 2, B) f64 (device)
+        ctypes.c_void_p,    # params (device)
+        ctypes.c_int64,     # params stride per trajectory (0: shared)
+        ctypes.c_int64,     # B
+        ctypes.c_int64,     # steps
+        ctypes.c_void_p,    # out, (B, NF + 3) f64 (device)
+        ctypes.c_void_p,    # ended, (B,) bool (device)
+        ctypes.c_void_p,    # cudaStream_t
+    ]
+    lib.inflx_survey_reduce.restype = ctypes.c_int
     lib.inflx_n_fields.argtypes = []
     lib.inflx_n_fields.restype = ctypes.c_int
 
@@ -227,8 +239,8 @@ class _Library:
 _GRID_SCAN = _Library("grid-scan", "grid_scan.cu",
                       ("grid_scan.cu", "anguelova.cuh", "dd.cuh", "special.cuh"),
                       "libinflx_grid_scan.so", _bind_grid_scan, ("-fmad=false",))
-_SOLVER = _Library("solver", "solver.cu", ("solver.cu", "solver.cuh", "inflx_math.cuh",
-                                           "special.cuh"),
+_SOLVER = _Library("solver", "solver.cu", ("solver.cu", "solver.cuh", "survey.cuh",
+                                           "inflx_math.cuh", "special.cuh"),
                    "libinflx_solver.so", _bind_solver, ())
 _SPECIAL_EVAL = _Library("special-function", "special_eval.cu", ("special_eval.cu", "special.cuh"),
                          "libinflx_special_eval.so", _bind_special_eval,
@@ -305,7 +317,7 @@ def load_special_eval() -> ctypes.CDLL:
 
 
 def load_solver(header_src: str) -> ctypes.CDLL:
-    """The solver library (kernel B6) for one generated model header
+    """The solver library (kernels B6 and B9) for one generated model header
     (:meth:`CompiledModel.cuda_solver_source`), built on first use and
     loaded once per process."""
     return _load(_SOLVER, header_src)

@@ -79,6 +79,7 @@ from .anguelova import (
 )
 from ..lowering.special import suppress_domain_warnings
 from .dd import DD, to_f64
+from ..utils.devices import upload
 from .grid import grid_coords
 
 __all__ = ["GRID_KERNELS", "KINDS", "LAUNCHES_BY_KERNEL", "POINT_KINDS", "PRECISIONS", "Precision",
@@ -120,15 +121,16 @@ GRID_KERNELS = ("B1", "B2", "B4", "B5a", "B5b", "B7a", "B7b", "B7d")
 #: kernel launches made in this process, by kernel: the grid and point
 #: kernels by :func:`scan_cuda`, :func:`scan_batch_cuda` and
 #: :func:`scan_points_cuda`, B6 by ``cuda_solver.solve_cuda``, B8 alone by
-#: ``special_eval.special_eval_cuda``
-LAUNCHES_BY_KERNEL = {**dict.fromkeys(GRID_KERNELS, 0), "B6": 0, "B8": 0}
+#: ``special_eval.special_eval_cuda``, B9 (the survey's reduction) by
+#: ``cuda_survey.survey_reduce_cuda``
+LAUNCHES_BY_KERNEL = {**dict.fromkeys(GRID_KERNELS, 0), "B6": 0, "B8": 0, "B9": 0}
 
 
 def launches() -> int:
     """Launches of the grid and point kernels (:data:`GRID_KERNELS`: by
     :func:`scan_cuda`, :func:`scan_batch_cuda` and
-    :func:`scan_points_cuda`) in this process, all together; not B6 or
-    B8."""
+    :func:`scan_points_cuda`) in this process, all together; not B6, B8
+    or B9."""
     return sum(LAUNCHES_BY_KERNEL[k] for k in GRID_KERNELS)
 
 
@@ -175,17 +177,6 @@ def _check(artifact, kind, args, extent, shape, precision, batch=False, rows=Non
     return args, extent, shape, rows
 
 
-def _params(args: np.ndarray, device: torch.device, precision: str = "f64") -> torch.Tensor:
-    """The parameter vector on ``device`` (float32 for ``"f32"``, else
-    float64); to a CUDA device through pinned memory, so the copy does not
-    block the host."""
-    dtype = np.float32 if precision == "f32" else np.float64
-    host = torch.from_numpy(np.ascontiguousarray(args, dtype=dtype))
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host.to(device)
-
-
 def _model_values(artifact, precision):
     """(potential, grad_square, grad, hesse) in ``precision``, each
     returning values of the working type."""
@@ -211,7 +202,7 @@ def evaluate_points(artifact, kind, args, xs, precision: str = "f64") -> torch.T
     device = first.device
     dtype = torch.float32 if precision == "f32" else torch.float64
     args = np.asarray(args, dtype=np.float64)
-    p = _params(args.T, device, precision)
+    p = upload(args.T, device, precision)
     if args.ndim == 2:
         p = p.reshape(args.shape[1], args.shape[0], *(1,) * len(shape))
         shape = (args.shape[0], *shape)
@@ -308,7 +299,7 @@ def _launch_grid(artifact, kind, args_batch, extent, shape, rows, device, precis
     dtype = torch.float32 if precision == "f32" else torch.float64
     max_sets = lib.inflx_max_sets()
     with torch.cuda.device(device):
-        p = _params(args_batch, device, precision)
+        p = upload(args_batch, device, precision)
         out = torch.empty((n_sets, n_out, count, n1), dtype=dtype, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         for lo in range(0, n_sets, max_sets):
@@ -432,7 +423,7 @@ def scan_points_cuda(artifact, kind, args, x, precision: str = "f64") -> torch.T
     lib = _library(artifact, precision)
     with torch.cuda.device(device):
         x = x.contiguous()
-        p = _params(args, device)
+        p = upload(args, device)
         out = torch.empty((n_out, n), dtype=torch.float64, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         launch = (KINDS[kind][0], p.data_ptr() if p.numel() else None, x.data_ptr(),

@@ -7,7 +7,8 @@ hand-written kernel) on a CUDA device and to ``"torch"`` (its plain PyTorch
 version) on a CPU device; ``"cuda"`` needs a CUDA device; ``"torch"`` runs
 on any.  A precision picks the arithmetic: ``"f64"`` (the default),
 ``"f32"`` or ``"dd"`` (double-double); the JAX package's ``dtype=float32``
-spelling of ``"f32"`` is accepted.
+spelling of ``"f32"`` is accepted.  :func:`upload` puts a host array on a
+device without blocking the host.
 """
 
 from __future__ import annotations
@@ -15,9 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cuda_kernels import PRECISIONS
-
-__all__ = ["resolve_device", "resolve_engine", "resolve_precision"]
+__all__ = ["resolve_device", "resolve_engine", "resolve_precision", "upload"]
 
 #: JAX-package engines and what takes their place in the port
 _ENGINE_MAP = (
@@ -71,6 +70,8 @@ def resolve_precision(precision=None, dtype=None) -> str:
     ``dtype``, else ``"f64"``) and the JAX package's ``dtype``: float32
     means ``"f32"``, float64 is ``"f64"`` or ``"dd"`` (both deliver f64
     values); a pair that disagrees raises."""
+    from ..ops.cuda_kernels import PRECISIONS  # noqa: PLC0415 (it imports this module)
+
     if precision is not None and precision not in PRECISIONS:
         raise ValueError(
             f"precision must be None or one of {tuple(PRECISIONS)}, got {precision!r}"
@@ -88,3 +89,15 @@ def resolve_precision(precision=None, dtype=None) -> str:
     if precision not in implied:
         raise ValueError(f"dtype={dtype!r} conflicts with precision={precision!r}")
     return precision
+
+
+def upload(a, device: torch.device, precision: str = "f64") -> torch.Tensor:
+    """An array (parameters, initial conditions) on ``device`` (float32 for
+    ``"f32"``, else float64); to a CUDA device through pinned memory, so
+    the copy does not block the host: it is ordered on the device's current
+    stream, and the host does not wait for what is already enqueued there."""
+    dtype = np.float32 if precision == "f32" else np.float64
+    host = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)

@@ -26,12 +26,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 #: example → the kernels it launches on the card (B8 runs inside B1 for the
-#: special-function models)
+#: special-function models; B9, the survey's reduction, is in B6's library)
 EXAMPLES = {
     "quickstart": ("B1", "B6", "B7a"),
     "engines_tour": ("B1", "B2", "B4"),
     "special_functions": ("B1",),
-    "background_sweep": ("B6", "B5a"),
+    "background_sweep": ("B6", "B5a", "B9"),
     "fit_observables": ("B1",),
     "spectra": ("B6",),
     "pipeline": ("B1", "B6"),

@@ -1,5 +1,5 @@
-"""Kernels B1, B2, B4, B5a, B5b, B6, the batched B7a, B7b, B7d and B8 on the
-card, against their plain PyTorch versions.
+"""Kernels B1, B2, B4, B5a, B5b, B6, the batched B7a, B7b, B7d, B8 and B9 on
+the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode): they
 carry the ``cuda`` marker and skip on a host without one.  This file
@@ -16,7 +16,11 @@ to that: bit for bit their plain version, and each set its single scan.
 B6's work counter (on while a profiler records) moves no bit of its rows,
 counts the plain version's attempts exactly, and leaves the instance that
 counts nothing as ptxas built it before the counter existed; the program's
-spans and the counter land in a ``profiling.trace`` of the card."""
+spans and the counter land in a ``profiling.trace`` of the card.  B9, the
+survey's reduction, is held bit for bit, NaN in the same places, to the
+plain reduction run on the host's CPU from the same rows (torch's CUDA
+cumsum sums in another order, and torch on the card divides by a number
+through its reciprocal)."""
 
 import json
 import os
@@ -870,3 +874,228 @@ def test_spans_and_the_b6_counter_in_a_trace_of_the_card(doc, cuda_device, tmp_p
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("grid_scan_kernel" in k for k in kernels)
     assert any("solve_kernel" in k for k in kernels)
+    assert any("survey_reduce_kernel" in k for k in kernels)
+
+
+# ------------------------------------------------------------------------- #
+# kernel B9: the survey's reduction, against the plain one on the host      #
+# ------------------------------------------------------------------------- #
+
+
+def assert_same_bits(got, want):
+    """One shape and dtype, NaN in the same places, every other value the
+    same bits (the sign of a zero included)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == bool:
+        assert np.array_equal(got, want)
+        return
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.int64), want[~nan].view(np.int64))
+
+
+def assert_b9_is_the_host_reduction(art, rows, times, pars):
+    """One B9 launch on the card, its five summaries bit for bit the plain
+    reduction's on the host's CPU from the same rows."""
+    from inflatox_torch.ops.cuda_survey import survey_reduce_cuda, survey_reduce_torch
+
+    before = cuda_kernels.LAUNCHES_BY_KERNEL["B9"]
+    got = survey_reduce_cuda(art, rows, times, pars)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == before + 1
+    want = survey_reduce_torch(art, rows.cpu(), times.cpu(), pars.cpu())
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert_same_bits(g, w)
+    return want
+
+
+def _edge_rows(art, steps=60, seed=0):
+    """tests/test_torch_survey.py's ``edge_rows`` for the doc model (g₀₀ =
+    ½): ten trajectories with one edge case each — never inflates;
+    inflates from row 0; never ends; crosses at the last row; H <= 0 on
+    some rows; NaN and inf rows, ε = inf just before the crossing; H = 0 on
+    a row; ε = 1 at the crossing; starts late; equal ε about the crossing."""
+    rng = np.random.default_rng(seed)
+    eps = np.full((10, steps), 0.5)
+    hub = np.ones((10, steps))
+    eps[0] = 2.0
+    eps[1, 20:] = 1.5
+    eps[2] = 0.3
+    eps[3, -1] = 1.2
+    hub[4, 5:10] = -1.0
+    eps[4, :10] = 1.5
+    eps[4, 30:] = 1.1
+    eps[5, 25:] = 1.3
+    eps[5, 3:5] = np.nan
+    eps[5, 24] = np.inf
+    hub[6, 12] = 0.0
+    eps[6, 40:] = 1.7
+    eps[7, 33:] = [1.0] + [2.0] * (steps - 34)
+    eps[8, :10] = 2.0
+    eps[8, 30:] = 1.25
+    hub[9, 20] = -1.0
+    eps[9, 20:] = 1.5
+    hub = hub * rng.uniform(0.5, 2.0, (10, 1))
+    rows = np.zeros((10, steps, 5))
+    rows[..., 0] = rng.uniform(1.5, 2.5, (10, steps))
+    rows[..., 1] = rng.uniform(1.5, 2.5, (10, steps))
+    rows[..., 2] = np.where(np.isinf(eps), np.inf, np.sqrt(4.0 * eps) * np.abs(hub))
+    rows[..., 4] = hub
+    rows[5, 3:5, 4] = np.nan
+    times = np.cumsum(rng.uniform(0.01, 0.2, (10, steps)), axis=1)
+    return rows, times - times[:, :1]
+
+
+def test_b9_matches_the_host_reduction_at_the_survey_cells_size(doc, cuda_device):
+    """Hyperinflation, 4096 trajectories × 2000 RKF45 rows on B6 (the
+    ``hyper.survey`` cell's call), and a ragged 100 × 777 (a last block of
+    4 lanes, a last tile part full)."""
+    art, args = doc
+    pars = torch.tensor(args, device="cuda")
+    for batch, steps in ((4096, 2000), (100, 777)):
+        f0 = torch.tensor(np.random.default_rng(batch).uniform(1.5, 2.5, (batch, 2)),
+                          device="cuda")
+        rows, times = solve_cuda(art, pars, steps, f0, torch.zeros_like(f0), 1e-6, "rkf")
+        want = assert_b9_is_the_host_reduction(art, rows, times, pars)
+        assert want[1].any()
+
+
+def test_b9_quadratic_model_per_trajectory_parameters(quadratic, cuda_device):
+    """tests/test_torch_background.py's ``test_survey_matches_jax`` model and
+    starts (14 of 16 end in 400 rows), each trajectory its own masses; the
+    survey through B9 equal to the survey on the CPU."""
+    gx, gy = np.meshgrid(np.linspace(3.0, 24.0, 4), np.linspace(0.0, 6.0, 4))
+    f0 = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    pars = np.array([1.0, 0.7]) * np.linspace(0.9, 1.1, 16)[:, None]
+    rows, times = solve_cuda(quadratic, torch.tensor(pars, device="cuda"), 400,
+                             torch.tensor(f0, device="cuda"),
+                             torch.zeros(16, 2, dtype=torch.float64, device="cuda"), 1e-8, "rkf")
+    want = assert_b9_is_the_host_reduction(quadratic, rows, times,
+                                           torch.tensor(pars, device="cuda"))
+    assert want[1].any()
+
+
+def test_b9_edge_cases_and_rows_in_b6_layout_only(doc, cuda_device):
+    """Drawn rows with the reduction's edge cases, as views of one buffer in
+    B6's layout; the same rows as plain (B, steps, 2n+1) and (B, steps)
+    tensors raise."""
+    from inflatox_torch.ops.cuda_survey import survey_reduce_cuda
+
+    art, args = doc
+    rows, times = _edge_rows(art)
+    pars = torch.tensor(args, device="cuda")
+    buf = torch.tensor(np.concatenate([rows, times[..., None]], axis=2).transpose(1, 2, 0)
+                       .copy(), device="cuda")
+    view = buf.permute(2, 0, 1)
+    want = assert_b9_is_the_host_reduction(art, view[..., :5], view[..., 5], pars)
+    assert list(want[1].numpy()) == [False, True, False, True, True, True, True, True, True,
+                                     True]
+    with pytest.raises(ValueError, match="layout|views"):
+        survey_reduce_cuda(art, torch.tensor(rows, device="cuda"),
+                           torch.tensor(times, device="cuda"), pars)
+
+
+def test_b9_three_fields(cuda_device):
+    a, b, c, m = sympy.symbols("a3 b3 c3 m3")
+    V = sympy.Rational(1, 2) * m**2 * (a**2 + 2 * b**2 + 3 * c**2)
+    model = inflatox_torch.InflationModelBuilder.new(
+        [a, b, c], [[1, 0, 0], [0, 1, 0], [0, 0, 1]], V, silent=True
+    ).build(guesses=[[0, 1, 0], [0, 0, 1]])
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    f0, d0 = _inits(300, 3)
+    pars = torch.tensor([1.3], dtype=torch.float64, device="cuda")
+    rows, times = solve_cuda(art, pars, 500, f0, d0, 1e-8, "rkf")
+    assert_b9_is_the_host_reduction(art, rows, times, pars)
+
+
+def _wide_model(n):
+    """An n-field model with a flat metric and V = ½ m² Σ (a+1) φ_a², built
+    without the symbolic builder (its basis and Hesse matrix, which the
+    solver library does not use, are the trivial ones)."""
+    xs = sympy.symbols(f"w0:{n}")
+    chis = sympy.symbols(f"wd0:{n}")
+    m = sympy.Symbol("m")
+    V = sympy.Rational(1, 2) * m**2 * sum((a + 1) * x**2 for a, x in enumerate(xs))
+    kin = sympy.Rational(1, 2) * sum(c**2 for c in chis)
+    one, zero = sympy.Integer(1), sympy.Integer(0)
+    eye = [[one if a == b else zero for b in range(n)] for a in range(n)]
+    model = inflatox_torch.InflationModel(
+        model_name="wide", coordinates=list(xs), tangents=list(chis), basis=eye,
+        eom_fields=[sympy.diff(V, x) for x in xs], eom_h=sympy.sqrt((V + kin) / 3),
+        eom_hdot=-kin, potential=V, metric=eye,
+        gradient_square=sum(sympy.diff(V, x)**2 for x in xs),
+        hesse_cmp=[[(a + 1) * m**2 if a == b else zero for b in range(n)] for a in range(n)])
+    return inflatox_torch.Compiler(model, silent=True).compile()
+
+
+def test_b9_many_fields_reads_its_rows_in_place(cuda_device):
+    """80 fields, where B9's ring of row tiles does not fit in a block's
+    shared memory (it does up to 73): the launch reads the rows in place
+    and its summaries are still bit for bit the host's plain reduction.
+    Drawn rows in B6's layout, 333 trajectories (a last block of 13 lanes)
+    × 301 rows, each with its own mass; ε rises through 1 at a drawn row,
+    or never reaches it, and some rows are NaN or have H <= 0."""
+    n, batch, steps = 80, 333, 301
+    art = _wide_model(n)
+    rng = np.random.default_rng(80)
+    cross = rng.integers(-40, steps + 40, batch)
+    s = np.arange(steps)[None, :]
+    eps = np.clip(0.2 + 0.9 * (s - cross[:, None] + 30) / 30.0, 0.05, 3.0)
+    hub = rng.uniform(0.5, 2.0, (batch, 1)) * np.exp(-s / steps)
+    chi = rng.normal(size=(batch, steps, n))
+    chi *= np.sqrt(2.0 * eps * hub**2 / (chi * chi).sum(axis=2))[..., None]
+    rows = np.concatenate([rng.uniform(-1.0, 1.0, (batch, steps, n)), chi, hub[..., None]],
+                          axis=2)
+    rows[::17, 50:53] = np.nan
+    rows[5::29, 100:104, 2 * n] = -hub[5::29, 100:104]
+    times = np.cumsum(rng.uniform(0.01, 0.2, (batch, steps)), axis=1)
+    buf = torch.tensor(np.concatenate([rows, (times - times[:, :1])[..., None]], axis=2)
+                       .transpose(1, 2, 0).copy(), device="cuda")
+    view = buf.permute(2, 0, 1)
+    pars = torch.tensor(rng.uniform(0.5, 2.0, (batch, 1)), device="cuda")
+    want = assert_b9_is_the_host_reduction(art, view[..., :2 * n + 1], view[..., 2 * n + 1],
+                                           pars)
+    assert want[1].any() and not want[1].all()
+
+
+def test_survey_on_the_card_chunked_as_unchunked(doc, cuda_device):
+    """B = 1000 in chunks of 384 (not a whole number of them): one B6 and
+    one B9 launch a chunk, the summaries bit for bit the unchunked survey's
+    and, row for row, the host's plain reduction of the card's rows."""
+    art, args = doc
+    f0 = np.random.default_rng(12).uniform(1.5, 2.5, (1000, 2))
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    got = background.survey_initial_conditions(art, args, 600, f0, np.zeros(2), chunk=384)
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before["B6"] + 3
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == before["B9"] + 3
+    whole = background.survey_initial_conditions(art, args, 600, f0, np.zeros(2))
+    rows, times = background.solve_eom_batch(art, args, 600, f0, np.zeros((1000, 2)),
+                                             solver="rkf", return_time=True)
+    from inflatox_torch.ops.cuda_survey import survey_reduce_torch
+
+    want = survey_reduce_torch(art, torch.tensor(rows), torch.tensor(times), torch.tensor(args))
+    keys = ("N_inflation", "ended", "H_end", "x_end", "N_span")
+    for key, w in zip(keys, want):
+        assert got[key].dtype == (bool if key == "ended" else np.float64)
+        assert_same_bits(torch.from_numpy(got[key]), torch.from_numpy(whole[key]))
+        assert_same_bits(torch.from_numpy(got[key]), w)
+
+
+def test_survey_on_four_slots_of_one_card_through_b9(doc, cuda_device):
+    """``mesh=`` with four slots on cuda:0 (203 starts, padded): B6 once a
+    slot, the rows joined on the mesh's home and reduced there by one B9
+    launch, every summary bit for bit the unsharded survey's."""
+    from inflatox_torch.parallel import make_mesh
+
+    art, args = doc
+    f0 = np.random.default_rng(13).uniform(1.5, 2.5, (203, 2))
+    mesh = make_mesh(("solve",), devices=[cuda_device] * 4)
+    before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    got = background.survey_initial_conditions(art, args, 300, f0, np.zeros(2), mesh=mesh)
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before["B6"] + 4
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == before["B9"] + 1
+    want = background.survey_initial_conditions(art, args, 300, f0, np.zeros(2))
+    for key in want:
+        assert_same_bits(torch.from_numpy(got[key]), torch.from_numpy(want[key]))

@@ -148,7 +148,7 @@ def test_solver_header_has_no_per_term_copies(solver_models):
     defined = set(re.findall(r"INFLX_(?:FN|COLD) \w+ (\w+)\(", src))
     assert defined == {"inflx_powi", "inflx_powi_bits", "inflx_max", "inflx_min", "inflx_sign",
                        "f_eom_h", "inflx_deriv", "inflx_deriv_exact", "inflx_deriv_cold",
-                       "inflx_deriv_cold_into"}
+                       "inflx_deriv_cold_into", "inflx_chi_sq"}
 
 
 def test_derivative_divides_without_branches_and_falls_back_whole():
