@@ -27,13 +27,14 @@
 // wrapper returns (B, steps, 2n+1) rows and (B, steps) times as views.
 //
 // Work counter: given a `counts` pointer, inflx_solve launches the COUNT
-// instance of the kernel, in which each thread keeps its attempts in a
-// register and adds them at the end to counts[0] (attempts, summed over
-// trajectories), and lane 0 of each warp adds (lanes that hold a
-// trajectory) × (the most attempts any of them made) to counts[1]: what the
-// warp's lock-step costs, so counts[0] / counts[1] is the share of lanes
-// doing work.  Without it, the instance that counts nothing runs, compiled
-// as before the counter existed.
+// instance of the kernel, in which each thread keeps its attempts and its
+// rejected attempts in registers and adds them at the end to counts[0]
+// (attempts, summed over trajectories) and counts[2] (rejects, summed), and
+// lane 0 of each warp adds (lanes that hold a trajectory) × (the most
+// attempts any of them made) to counts[1]: what the warp's lock-step costs,
+// so counts[0] / counts[1] is the share of lanes doing work, and counts[2] /
+// counts[0] the share of attempts thrown away.  Without it, the instance
+// that counts nothing runs, compiled as before the counter existed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,11 +65,13 @@ solve_kernel(const double* __restrict__ fields0,
   const bool live = b < n_traj;
   unsigned long long attempts = 0;
   if (live) {
+    int64_t rejects = 0;
     attempts = (unsigned long long)inflx_solve_trajectory<METHOD, true>(
         fields0 + b * INFLX_NF, derivs0 + b * INFLX_NF,
         p == nullptr ? p : p + b * p_stride, steps, max_err, inv_max_err,
-        out + b, (int64_t)(INFLX_NY + 1) * n_traj, n_traj);
+        out + b, (int64_t)(INFLX_NY + 1) * n_traj, n_traj, &rejects);
     atomicAdd(counts, attempts);
+    atomicAdd(counts + 2, (unsigned long long)rejects);
   }
   const unsigned lanes = __ballot_sync(0xffffffffu, live);
   unsigned long long most = attempts;
@@ -85,8 +88,8 @@ extern "C" {
 // Launch one batched solve on `stream`; returns cudaGetLastError() (0 on
 // success).  fields0, derivs0: (n_traj, INFLX_NF) f64; p: parameters, row b
 // at p + b * p_stride (p_stride 0: shared); out: (steps, 2 INFLX_NF + 2,
-// n_traj) f64; counts: null (count nothing) or two u64 (attempts,
-// lane_attempts) that the solve adds to; all on the device.
+// n_traj) f64; counts: null (count nothing) or three u64 (attempts,
+// lane_attempts, rejects) that the solve adds to; all on the device.
 int inflx_solve(int method, const void* fields0, const void* derivs0,
                 const void* p, int64_t p_stride, void* out, int64_t n_traj,
                 int64_t steps, double max_err, double inv_max_err,

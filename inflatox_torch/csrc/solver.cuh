@@ -170,13 +170,15 @@ INFLX_FN void inflx_store_row(double* row, int64_t comp_stride, const double* y,
 
 // One whole trajectory: `steps` rows of [y, t] written to out, element c of
 // row s at out[s * row_stride + c * comp_stride].  With COUNT it returns the
-// number of attempts it made (accepted and rejected), else 0.
+// number of attempts it made (accepted and rejected) and stores the rejected
+// ones in *rejects, else it returns 0 and leaves rejects alone.
 template <int METHOD, bool COUNT = false>
 INFLX_FN int64_t inflx_solve_trajectory(const double* x0, const double* xd0,
                                         const double* p, int64_t steps,
                                         double max_err, double inv_max_err,
                                         double* out, int64_t row_stride,
-                                        int64_t comp_stride) {
+                                        int64_t comp_stride,
+                                        int64_t* rejects = nullptr) {
   const int stages = METHOD == INFLX_RKF45 ? 6 : 4;
   const double exponent = 1.0 / (stages + 1);
   double y[INFLX_NY];
@@ -191,7 +193,7 @@ INFLX_FN int64_t inflx_solve_trajectory(const double* x0, const double* xd0,
   double k0[INFLX_NY];
   inflx_slope(y, p, k0);
   inflx_store_row(out, comp_stride, y, t);
-  int64_t attempts = 0;
+  int64_t attempts = 0, rejected = 0;
   for (int64_t s = 1; s < steps;) {
     double hi[INFLX_NY], lo[INFLX_NY], k0_next[INFLX_NY];
     if (COUNT) ++attempts;
@@ -239,7 +241,10 @@ INFLX_FN int64_t inflx_solve_trajectory(const double* x0, const double* xd0,
       inflx_store_row(out + s * row_stride, comp_stride, y, t);
       ++s;
       INFLX_STAMP(INFLX_PART_STORE, t);
+    } else if (COUNT) {
+      ++rejected;
     }
   }
+  if (COUNT) *rejects = rejected;
   return attempts;
 }

@@ -192,7 +192,7 @@ def _bind_solver(lib: ctypes.CDLL) -> None:
         ctypes.c_double,    # max_err
         ctypes.c_double,    # 1 / max_err
         ctypes.c_void_p,    # cudaStream_t
-        ctypes.c_void_p,    # counts, (attempts, lane_attempts) u64 (device), or None
+        ctypes.c_void_p,    # counts, (attempts, lane_attempts, rejects) u64 (device), or None
     ]
     lib.inflx_solve.restype = ctypes.c_int
     lib.inflx_survey_reduce.argtypes = [

@@ -28,10 +28,11 @@ Beside the kernel:
 * :func:`derivative`, :func:`rk_step`, :func:`embedded` — its stages.
 * :func:`attempt_counts` — B6's work while a profiler records
   (``utils.profiling.recording``): the attempts of every trajectory solved
-  in that time, summed, and the lanes' attempts, each warp's most times its
-  lanes that hold a trajectory.  Only then does the wrapper launch the
-  kernel's counting instance, and the plain version add its attempts; a
-  run with no profiler launches the kernel that counts nothing.
+  in that time, summed, the rejected ones among them, and the lanes'
+  attempts, each warp's most times its lanes that hold a trajectory.  Only
+  then does the wrapper launch the kernel's counting instance, and the
+  plain version add its attempts and rejects; a run with no profiler
+  launches the kernel that counts nothing.
 
 Both write (steps, 2n+2, B) with the trajectory index fastest and return
 (B, steps, 2n+1) rows and (B, steps) times as views of it.  Every operation
@@ -77,8 +78,8 @@ _DT_FLOOR = 1e-250  # bail-out: forcibly accept rather than loop forever
 #: solver name → (kernel method id in csrc/solver.cuh, stages)
 METHODS = {"rkf": (0, 6), "rk4": (1, 4)}
 
-#: device → its (attempts, lane_attempts) int64 tensor, made on the first
-#: solve there under a profiler
+#: device → its (attempts, lane_attempts, rejects) int64 tensor, made on the
+#: first solve there under a profiler
 _COUNTS: dict = {}
 
 #: on the CPU the plain version pads its batch to whole multiples of this
@@ -173,23 +174,23 @@ def _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver
 def _counts(device) -> torch.Tensor:
     counts = _COUNTS.get(device)
     if counts is None:
-        counts = _COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        counts = _COUNTS[device] = torch.zeros(3, dtype=torch.int64, device=device)
     return counts
 
 
 def attempt_counts() -> dict:
     """B6's work over the solves made while a profiler recorded, in this
     process: ``attempts`` (every trajectory's attempts, accepted and
-    rejected, summed; the kernel's and the plain version's) and
+    rejected, summed; the kernel's and the plain version's),
     ``lane_attempts`` (the kernel's warps: lanes that hold a trajectory ×
-    the most attempts one of them made, summed).  One device→host read a
-    device that solved."""
-    total = [0, 0]
+    the most attempts one of them made, summed) and ``rejects`` (the
+    attempts that were rejected, summed, as ``attempts``).  One device→host
+    read a device that solved."""
+    total = [0, 0, 0]
     for counts in _COUNTS.values():
-        attempts, lanes = counts.tolist()
-        total[0] += attempts
-        total[1] += lanes
-    return {"attempts": total[0], "lane_attempts": total[1]}
+        for k, v in enumerate(counts.tolist()):
+            total[k] += v
+    return {"attempts": total[0], "lane_attempts": total[1], "rejects": total[2]}
 
 
 def _views(out, ny):
@@ -208,7 +209,8 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
     Returns ``(rows, times)`` — (B, steps, 2n+1) and (B, steps) — and, with
     ``count_attempts=True``, also the (B,) number of attempts each
     trajectory made over its steps − 1 rows; while a profiler records, their
-    sum goes to :func:`attempt_counts`.  On the CPU each trajectory's
+    sum goes to :func:`attempt_counts`, and so does the sum of the rejected
+    ones.  On the CPU each trajectory's
     arithmetic does not depend on its place in the batch (``_CPU_LANES``)."""
     _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver)
     traced = recording()
@@ -227,10 +229,10 @@ def solve_torch(artifact, pars, steps, fields_init, derivatives_init,
     if pad:
         out = tuple(o[:batch] for o in out)
     if traced:
-        _counts(fields_init.device)[0] += out[2].sum()
-        if not count_attempts:
-            out = out[:2]
-    return out
+        counts = _counts(fields_init.device)
+        counts[0] += out[2].sum()
+        counts[2] += out[3].sum()
+    return out[:3] if count_attempts else out[:2]
 
 
 def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, solver,
@@ -252,6 +254,7 @@ def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, 
     dt = torch.full((batch,), _DT_INIT, dtype=torch.float64, device=device)
     t = torch.zeros(batch, dtype=torch.float64, device=device)
     attempts = torch.zeros(batch, dtype=torch.int64, device=device)
+    rejects = torch.zeros(batch, dtype=torch.int64, device=device)
     out = torch.empty((steps, ny + 1, batch), dtype=torch.float64, device=device)
     out[0, :ny] = y
     out[0, ny] = t
@@ -278,6 +281,8 @@ def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, 
             t = torch.where(take, t + dt, t)
             dt = torch.where(active, dt * q, dt)
             attempts += active
+            if count_attempts:
+                rejects += active & ~accept
             active = active & ~accept
             if not bool(active.any()):
                 break
@@ -285,7 +290,7 @@ def _solve_torch(artifact, pars, steps, fields_init, derivatives_init, max_err, 
         out[s, ny] = t
     rows, times = _views(out, ny)
     if count_attempts:
-        return rows, times, attempts
+        return rows, times, attempts, rejects
     return rows, times
 
 

@@ -20,7 +20,10 @@ spans and the counter land in a ``profiling.trace`` of the card.  B9, the
 survey's reduction, is held bit for bit, NaN in the same places, to the
 plain reduction run on the host's CPU from the same rows (torch's CUDA
 cumsum sums in another order, and torch on the card divides by a number
-through its reciprocal)."""
+through its reciprocal).  Angular inflation, whose disc metric has a pole
+near the benchmark's starts, runs through B6, B9 and the survey's chunk
+loop at the cell ``angular.survey``'s sizes, and B6's counting instance
+counts its rejected attempts."""
 
 import json
 import os
@@ -1099,3 +1102,94 @@ def test_survey_on_four_slots_of_one_card_through_b9(doc, cuda_device):
     want = background.survey_initial_conditions(art, args, 300, f0, np.zeros(2))
     for key in want:
         assert_same_bits(torch.from_numpy(got[key]), torch.from_numpy(want[key]))
+
+
+# ------------------------------------------------------------------------- #
+# angular inflation on the survey path: B6, B9 and the chunk loop           #
+# ------------------------------------------------------------------------- #
+
+#: the box of starts of the benchmark's cell ``angular.survey``, (φ, χ): the
+#: disc's metric 6α/(1 − φ² − χ²)² has a pole at r = 1, and the box reaches
+#: r = 0.997
+ANGULAR_BOX = (0.64, 0.705)
+
+
+@pytest.fixture(scope="module")
+def angular(cuda_device):
+    model, args = inflatox_torch.models.angular()
+    art = inflatox_torch.Compiler(model, silent=True).compile()
+    return art, torch.tensor(args, device=cuda_device)
+
+
+def _angular_starts(batch, seed):
+    f0 = torch.tensor(np.random.default_rng(seed).uniform(*ANGULAR_BOX, (batch, 2)),
+                      device="cuda")
+    return f0, torch.zeros_like(f0)
+
+
+def test_angular_b6_matches_the_plain_version_on_the_first_rows(angular):
+    """4096 starts (one of the cell's chunks), 20 rows: the kernel's rows and
+    times those of the plain version on the card, rtol 1e-12 with NaN in the
+    same places, as the other models' B6 tests."""
+    art, pars = angular
+    f0, d0 = _angular_starts(4096, seed=1)
+    rows, times = solve_cuda(art, pars, 20, f0, d0, 1e-6, "rkf")
+    want_rows, want_times = solve_torch(art, pars, 20, f0, d0, 1e-6, "rkf")
+    assert_rows_equal(rows, want_rows)
+    assert_rows_equal(times, want_times)
+
+
+def test_angular_b9_is_the_host_reduction(angular):
+    """B6's 4096 × 2000 rows of the cell's chunk, reduced by one B9 launch:
+    its five summaries bit for bit the plain reduction's on the host's CPU,
+    with trajectories that end inflation and trajectories whose state is no
+    longer finite at the disc's edge among them."""
+    art, pars = angular
+    f0, d0 = _angular_starts(4096, seed=2)
+    rows, times = solve_cuda(art, pars, 2000, f0, d0, 1e-6, "rkf")
+    assert assert_b9_is_the_host_reduction(art, rows, times, pars)[1].any()
+
+
+def test_angular_survey_in_two_chunks_is_each_chunks_reduction(angular):
+    """The cell's call: 8192 starts in chunks of 4096 through
+    ``survey_initial_conditions`` on the card (two B6 and two B9 launches,
+    one wait), each chunk's summaries those of B9 on that chunk's rows
+    solved alone (B6 is deterministic)."""
+    from inflatox_torch.ops.cuda_survey import survey_reduce_cuda
+
+    art, pars = angular
+    f0, d0 = _angular_starts(8192, seed=3)
+    launches = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
+    got = background.survey_initial_conditions(art, pars.cpu().numpy(), 2000,
+                                               f0.cpu().numpy(), np.zeros(2), chunk=4096)
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == launches["B6"] + 2
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == launches["B9"] + 2
+    for c in range(2):
+        sl = slice(4096 * c, 4096 * (c + 1))
+        rows, times = solve_cuda(art, pars, 2000, f0[sl], d0[sl], 1e-6, "rkf")
+        n_inf, ended, h_end, x_end, n_span = survey_reduce_cuda(art, rows, times, pars)
+        for key, want in (("N_inflation", n_inf), ("ended", ended), ("H_end", h_end),
+                          ("x_end", x_end), ("N_span", n_span)):
+            assert_same_bits(torch.as_tensor(got[key][sl]), want)
+
+
+def test_angular_b6_rejection_counter(angular):
+    """200 starts (a last warp of 8 lanes), 150 rows, under a profiler: the
+    counting instance's attempts those of the plain version on the card,
+    its rejects the plain version's attempts less the accepted rows; its
+    rows those of the launch that counts nothing.  (The plain version's own
+    count under a profiler is tested on the CPU, in
+    tests/test_torch_survey_angular.py.)"""
+    art, pars = angular
+    f0, d0 = _angular_starts(200, seed=4)
+    rows, times = solve_cuda(art, pars, 150, f0, d0, 1e-6, "rkf")
+    _, _, attempts = solve_torch(art, pars, 150, f0, d0, 1e-6, "rkf", count_attempts=True)
+    before = cuda_solver.attempt_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        counted_rows, counted_times = solve_cuda(art, pars, 150, f0, d0, 1e-6, "rkf")
+        torch.cuda.synchronize()
+    after = cuda_solver.attempt_counts()
+    assert_same_bits(counted_rows, rows)
+    assert_same_bits(counted_times, times)
+    assert after["attempts"] - before["attempts"] == int(attempts.sum())
+    assert after["rejects"] - before["rejects"] == int(attempts.sum()) - 200 * 149 > 0
