@@ -23,7 +23,8 @@ cumsum sums in another order, and torch on the card divides by a number
 through its reciprocal).  Angular inflation, whose disc metric has a pole
 near the benchmark's starts, runs through B6, B9 and the survey's chunk
 loop at the cell ``angular.survey``'s sizes, and B6's counting instance
-counts its rejected attempts."""
+counts its rejected attempts.  A survey of several chunks runs them side
+by side on streams of their own, bit for bit the one-chunk call."""
 
 import json
 import os
@@ -1171,6 +1172,60 @@ def test_angular_survey_in_two_chunks_is_each_chunks_reduction(angular):
         for key, want in (("N_inflation", n_inf), ("ended", ended), ("H_end", h_end),
                           ("x_end", x_end), ("N_span", n_span)):
             assert_same_bits(torch.as_tensor(got[key][sl]), want)
+
+
+@pytest.mark.parametrize("case", ["angular", "hyperinflation", "angular-trace"])
+def test_survey_chunks_side_by_side(doc, angular, tmp_path, case):
+    """8192 starts, 2000 rows.  In chunks of 4096 and of 3000 (a ragged last
+    chunk), each chunk's B6 and B9 on a side stream of its own: every
+    summary bit for bit the one-chunk call's (chunk 8192, the current
+    stream), on angular inflation and on hyperinflation, and
+    ``survey_counts`` counting every chunk and, for a depth of two or
+    more, every chunk after the first as overlapped.  Under
+    ``profiling.trace``, three of the cell ``angular.survey``'s calls: two
+    ``solve_kernel`` intervals intersect.  (Late in this file's process the
+    trace has been seen to lose the last kernel of a profiled block, so
+    the block holds three calls and the test asks for one intersecting
+    pair of the launches it finds.)"""
+    if case == "hyperinflation":
+        art, args = doc
+        f0 = np.random.default_rng(21).uniform(1.5, 2.5, (8192, 2))
+    else:
+        art, pars = angular
+        args = pars.cpu().numpy()
+        f0 = np.random.default_rng(22).uniform(*ANGULAR_BOX, (8192, 2))
+
+    def survey(chunk):
+        before = background.survey_counts()
+        out = background.survey_initial_conditions(art, args, 2000, f0, np.zeros(2),
+                                                   chunk=chunk)
+        after = background.survey_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    if case.endswith("trace"):
+        from inflatox_torch.utils import profiling
+
+        survey(4096)  # builds outside the trace
+        with profiling.trace(str(tmp_path), label="overlap"):
+            counted = [survey(4096)[1] for _ in range(3)]
+        assert counted == [{"chunks": 2, "overlapped": 1}] * 3
+        (path,) = tmp_path.glob("overlap*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+        solves = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                        if e.get("cat") == "kernel" and "solve_kernel" in e["name"])
+        assert any(b[0] < a[1] for a, b in zip(solves, solves[1:])), solves
+        return
+    whole, counted = survey(8192)
+    assert counted == {"chunks": 1, "overlapped": 0}
+    props = torch.cuda.get_device_properties(0)
+    for chunk in (4096, 3000):
+        got, counted = survey(chunk)
+        chunks = -(-8192 // chunk)
+        k = background._overlap_depth(4 * props.multi_processor_count, chunk, chunks,
+                                      torch.cuda.mem_get_info(0)[0], 2000, 2)
+        assert counted == {"chunks": chunks, "overlapped": chunks - 1 if k >= 2 else 0}
+        for key in whole:
+            assert_same_bits(torch.from_numpy(got[key]), torch.from_numpy(whole[key]))
 
 
 def test_angular_b6_rejection_counter(angular):

@@ -275,3 +275,44 @@ def test_survey_delivers_the_plain_summaries_in_their_dtypes(models):
             assert out[key].flags.c_contiguous
             assert_same_bits(out[key], w.numpy())
     assert got["ended"].any()
+
+
+#: kernel B6's output of one chunk of 4096 trajectories × 2000 rows of a
+#: 2-field model: steps × (2n + 2) × chunk f64 values
+ROWS_4096 = 2000 * 6 * 4096 * 8
+#: an H100's warp schedulers, four on each of its 132 SMs
+H100_SCHEDULERS = 4 * 132
+#: (schedulers, chunk, chunks, free bytes, steps, n_fields) → the depth
+DEPTHS = {
+    "4096-in-2": ((H100_SCHEDULERS, 4096, 2, 80 * 10**9, 2000, 2), 2),
+    "4096-in-8": ((H100_SCHEDULERS, 4096, 8, 80 * 10**9, 2000, 2), 4),
+    "16896-in-4": ((H100_SCHEDULERS, 16896, 4, 80 * 10**9, 2000, 2), 1),
+    "20000-in-4": ((H100_SCHEDULERS, 20000, 4, 80 * 10**9, 2000, 2), 1),
+    "one-chunk": ((H100_SCHEDULERS, 4096, 1, 80 * 10**9, 2000, 2), 1),
+    "memory-below-two-chunks": ((H100_SCHEDULERS, 4096, 8, 4 * ROWS_4096 - 1, 2000, 2), 1),
+    "memory-for-three-chunks": ((H100_SCHEDULERS, 4096, 8, 6 * ROWS_4096, 2000, 2), 3),
+}
+
+
+@pytest.mark.parametrize("case", [*DEPTHS, "cpu-survey"])
+def test_overlap_depth_and_the_cpu_survey(models, case):
+    """The depth of the survey's chunk loop on the card: as many chunks as
+    fill the card's warp schedulers with B6's one-warp blocks, at most the
+    number of chunks, with their rows within half the free memory, and at
+    least one.  A survey on the CPU counts no chunk and returns the plain
+    reduction of its solve, chunked as unchunked."""
+    if case in DEPTHS:
+        args, want = DEPTHS[case]
+        assert background._overlap_depth(*args) == want
+        return
+    art, args = models["doc"]
+    f0 = np.random.default_rng(8).uniform(1.5, 2.5, (20, 2))
+    before = background.survey_counts()
+    got = background.survey_initial_conditions(art, args, 300, f0, np.zeros(2), chunk=8,
+                                               device="cpu")
+    assert background.survey_counts() == before == {"chunks": 0, "overlapped": 0}
+    rows, times = background._solve_batch_device(art, args, 300, f0, np.zeros((20, 2)), 1e-6,
+                                                 "rkf", torch.device("cpu"), "torch")
+    want = survey_reduce_torch(art, rows, times, torch.tensor(args))
+    for key, w in zip(("N_inflation", "ended", "H_end", "x_end", "N_span"), want):
+        assert_same_bits(got[key], w.numpy())
