@@ -39,70 +39,25 @@ import numpy as np
 import torch
 
 from .compiler import CompiledModel
-from .ops import cuda_solver
-from .ops.cuda_solver import solve_cuda, solve_torch
+from .ops.cuda_solver import _check_batch, _check_solver, solve_cuda, solve_torch
 from .ops.cuda_survey import survey_reduce_cuda
 from .parallel.mesh import check_mesh_device
 from .parallel.solve import sharded_solve_eom_batch
 from .utils.devices import resolve_device, resolve_engine, upload
 from .utils.errors import ShapeError
-from .utils.profiling import annotate, recording
+from .utils.profiling import annotate
 
 __all__ = ["SURVEY_COUNTS", "solve_eom", "solve_eom_batch", "survey_counts",
            "survey_initial_conditions", "efolds"]
 
 #: the survey's chunks on a CUDA device through kernel B6, counted always (as
-#: ``LAUNCHES_BY_KERNEL``): ``chunks`` enqueued, and ``overlapped``, those
-#: enqueued while an earlier chunk of the same call was still in flight on
-#: another stream (:func:`survey_counts`)
+#: ``LAUNCHES_BY_KERNEL``): ``chunks`` solved, and ``overlapped``, those
+#: solved in one launch beside an earlier chunk of the same call
+#: (:func:`survey_counts`)
 SURVEY_COUNTS = {"chunks": 0, "overlapped": 0}
 
 #: kernel B6's block: one warp, a trajectory a thread (``csrc/solver.cu``)
 _B6_BLOCK = 32
-
-#: the survey's side streams by device index, made at first need and kept
-_SIDE_STREAMS: dict[int, list] = {}
-
-
-def _check_solver(solver):
-    if solver == "rkf_pallas":
-        raise ValueError(
-            'solver="rkf_pallas" is the JAX package\'s TPU kernel; in the '
-            'PyTorch port solver="rkf" runs kernel B6 (and "rk4" too) on a '
-            "CUDA device"
-        )
-    if solver not in ("rk4", "rkf"):
-        raise ValueError(f'unknown solver {solver!r}; expected "rk4" or "rkf"')
-
-
-def _check_batch(artifact, pars, fields_init, derivatives_init):
-    """The JAX package's shape checks of a batched solve (ShapeError)."""
-    n = artifact.n_fields
-    fields_init = np.asarray(fields_init, dtype=float)
-    derivatives_init = np.asarray(derivatives_init, dtype=float)
-    pars = np.asarray(pars, dtype=float)
-    if fields_init.ndim != 2 or fields_init.shape[1] != n:
-        raise ShapeError(
-            (-1, n), fields_init.shape,
-            "batched initial conditions must be (B, n_fields)",
-        )
-    if derivatives_init.shape != fields_init.shape:
-        raise ShapeError(
-            fields_init.shape, derivatives_init.shape,
-            "derivatives_init must match fields_init (B, n_fields)",
-        )
-    if pars.ndim == 2 and pars.shape != (fields_init.shape[0], artifact.n_parameters):
-        raise ShapeError(
-            (fields_init.shape[0], artifact.n_parameters), pars.shape,
-            "per-trajectory parameters must be (B, n_parameters)",
-        )
-    if pars.ndim == 1 and pars.shape != (artifact.n_parameters,):
-        raise ShapeError(
-            (artifact.n_parameters,), pars.shape,
-            "shared parameters must be (n_parameters,)",
-        )
-    return pars, fields_init, derivatives_init
-
 
 def _solve_batch_device(artifact, pars, steps, fields_init, derivatives_init,
                         max_err, solver, device, engine):
@@ -227,14 +182,14 @@ def _survey_reduce(artifact, rows, times, pars):
 
 def survey_counts() -> dict:
     """:data:`SURVEY_COUNTS` over this process: ``chunks``, the survey's
-    chunks enqueued by kernel B6 on a CUDA device, and ``overlapped``, those
-    among them enqueued while an earlier chunk of the same call was still
-    in flight on another stream."""
+    chunks solved by kernel B6 on a CUDA device, and ``overlapped``, those
+    among them solved in one launch beside an earlier chunk of the same
+    call."""
     return dict(SURVEY_COUNTS)
 
 
 def _overlap_depth(schedulers, chunk, chunks, free_bytes, steps, n_fields) -> int:
-    """How many of a survey's chunks to keep in flight on the card at once.
+    """How many of a survey's chunks one launch of kernel B6 takes.
 
     Kernel B6 gives each trajectory a thread and each block one warp, a
     latency-bound chain, so a chunk of ``chunk`` trajectories keeps
@@ -245,15 +200,6 @@ def _overlap_depth(schedulers, chunk, chunks, free_bytes, steps, n_fields) -> in
     warps = -(-chunk // _B6_BLOCK)
     rows_bytes = steps * (2 * n_fields + 2) * chunk * 8
     return max(1, min(schedulers // warps, chunks, free_bytes // 2 // rows_bytes))
-
-
-def _side_streams(device, k):
-    """``k`` side streams of the CUDA ``device``, made once and kept."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    streams = _SIDE_STREAMS.setdefault(index, [])
-    while len(streams) < k:
-        streams.append(torch.cuda.Stream(index))
-    return streams[:k]
 
 
 def survey_initial_conditions(
@@ -278,36 +224,33 @@ def survey_initial_conditions(
     inflation the initial condition produces (ε_H < 1 → ε_H = 1 crossing,
     interpolated), whether inflation ends inside the integrated span, and
     the crossing's H and field point.  ``pars`` is (k,) shared or (B, k)
-    per-trajectory.  The batch runs in ``chunk``-sized solves; only the
-    (B,) summaries cross to the host.  With ``mesh=`` each chunk's solve is
-    split over the mesh's first axis and its rows are joined on the mesh's
-    first device, where the summaries are reduced.
+    per-trajectory.  The batch runs in ``chunk``-sized pieces (on the card
+    several of them in one solve, below); only the (B,) summaries cross to
+    the host.  With ``mesh=`` each chunk's solve is split over the mesh's
+    first axis and its rows are joined on the mesh's first device, where
+    the summaries are reduced.
 
     Returns a dict of (B,) numpy arrays: ``N_inflation`` (NaN where
     inflation never happens or never ends), ``ended`` (bool), ``H_end``,
     ``x_end`` ((B, n)), ``N_span`` (e-folds over the whole trajectory).
 
-    On a CUDA device nothing in the chunk loop waits for the card: each
-    chunk's inputs go up through pinned memory, kernel B6 and the
-    reduction (kernel B9, one launch) are enqueued on one stream behind
-    them, and the chunk's summaries, stacked into one (chunk, n+4) tensor,
-    are copied into pinned host memory behind those; the host waits once,
-    after the last chunk's copy is enqueued.  With B6 (no ``mesh``) and
-    more than one chunk, that stream is one of k side streams, taken in
-    turn, so that k chunks' solves share the card: each B6 block is one
-    warp, and a chunk of fewer warps than the card has schedulers leaves
-    the rest idle (:func:`_overlap_depth` derives k from the SM count, the
-    chunk, the number of chunks and the free device memory).  The side
-    streams first wait for the caller's current stream, every tensor of a
-    chunk is made on its stream, and the current stream waits for them
-    all before the one wait; with k = 1 every chunk runs on the current
-    stream.  Spans per chunk (``utils.profiling``): ``inflx.survey.solve``
-    (the inputs' uploads and B6's enqueue on the chunk's stream; no wait),
-    ``inflx.survey.reduce`` (B9's launch behind it; on the CPU the plain
-    reduction) and ``inflx.survey.deliver`` (the stacking and the copy's
-    enqueue, and in the last chunk the one wait: for every stream's B6,
-    reductions and copies).  :func:`survey_counts` counts the chunks and
-    those that overlapped an earlier one.
+    On a CUDA device nothing in the loop waits for the card: each group
+    of chunks has its inputs go up through pinned memory, kernel B6 and
+    the reduction (kernel B9, one launch) enqueued on the current stream
+    behind them, and its summaries, stacked into one (trajectories, n+4)
+    tensor, copied into pinned host memory behind those; the host waits
+    once, after the last group's copy is enqueued.  With B6 (no ``mesh``) a
+    group is k consecutive chunks in one launch, so that a chunk of fewer
+    one-warp blocks than the card has warp schedulers does not leave the
+    rest idle (:func:`_overlap_depth` derives k from the SM count, the
+    chunk, the number of chunks and the free device memory); otherwise a
+    group is one chunk.  Spans per group (``utils.profiling``):
+    ``inflx.survey.solve`` (the inputs' uploads and B6's enqueue; no
+    wait), ``inflx.survey.reduce`` (B9's launch behind it; on the CPU the
+    plain reduction) and ``inflx.survey.deliver`` (the stacking and the
+    copy's enqueue, and in the last group the one wait).
+    :func:`survey_counts` counts the chunks and those solved beside an
+    earlier one.
 
     ``solver``: None (``"rkf"``), ``"rkf"`` or ``"rk4"``; ``device``,
     ``engine`` and ``mesh`` as in :func:`solve_eom_batch`."""
@@ -333,54 +276,41 @@ def survey_initial_conditions(
     b6 = cuda and mesh is None and engine == "cuda"
     chunk = int(chunk)
     chunks = -(-B // chunk)
-    caller = torch.cuda.current_stream(device) if cuda else None
-    streams = []
+    k = 1
     if b6 and chunks > 1:
         props = torch.cuda.get_device_properties(device)
         k = _overlap_depth(4 * props.multi_processor_count, min(chunk, B), chunks,
                            torch.cuda.mem_get_info(device)[0], int(steps), d)
-        if k > 1:
-            streams = _side_streams(device, k)
-            if recording():  # B6's counting buffer, zeroed before the streams fork
-                cuda_solver._counts(device)
-            start = caller.record_event()
-            for s in streams:
-                s.wait_event(start)
     # per trajectory: N_inflation, ended (0 or 1), H_end, x_end[d], N_span
     host = torch.empty((B, d + 4), dtype=torch.float64, pin_memory=cuda)
-    for i, c0 in enumerate(range(0, B, chunk)):
-        sl = slice(c0, min(B, c0 + chunk))
+    for g0 in range(0, B, k * chunk):
+        sl = slice(g0, min(B, g0 + k * chunk))
         p_c = pars if pars.ndim == 1 else pars[sl]
-        stream = streams[i % len(streams)] if streams else None
-        # every tensor of the chunk is made on its stream, so the caching
-        # allocator hands its blocks to no other stream while they are read
-        with torch.cuda.stream(stream):  # no-op for None: the current stream
-            with annotate("inflx.survey.solve"):
-                p_t = upload(p_c, device)
-                if mesh is not None:
-                    rows, times = sharded_solve_eom_batch(
-                        artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
-                        solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
-                        combine="device", engine=engine,
-                    )
-                else:
-                    rows, times = _solve_batch_device(
-                        artifact, p_t, steps, fields_init[sl], derivatives_init[sl],
-                        max_err, solver, device, engine,
-                    )
-            with annotate("inflx.survey.reduce"):
-                n_inf, ended, h_end, x_end, n_span = _survey_reduce(artifact, rows, times, p_t)
-            with annotate("inflx.survey.deliver"):
-                stacked = torch.cat([n_inf[:, None], ended[:, None], h_end[:, None], x_end,
-                                     n_span[:, None]], dim=1)
-                host[sl].copy_(stacked, non_blocking=True)
-                if cuda and sl.stop == B:
-                    for s in streams:
-                        caller.wait_stream(s)
-                    caller.synchronize()
+        with annotate("inflx.survey.solve"):
+            p_t = upload(p_c, device)
+            if mesh is not None:
+                rows, times = sharded_solve_eom_batch(
+                    artifact, p_c, steps, fields_init[sl], derivatives_init[sl], mesh,
+                    solve_axis=mesh.axis_names[0], max_err=max_err, solver=solver,
+                    combine="device", engine=engine,
+                )
+            else:
+                rows, times = _solve_batch_device(
+                    artifact, p_t, steps, fields_init[sl], derivatives_init[sl],
+                    max_err, solver, device, engine,
+                )
+        with annotate("inflx.survey.reduce"):
+            n_inf, ended, h_end, x_end, n_span = _survey_reduce(artifact, rows, times, p_t)
+        with annotate("inflx.survey.deliver"):
+            stacked = torch.cat([n_inf[:, None], ended[:, None], h_end[:, None], x_end,
+                                 n_span[:, None]], dim=1)
+            host[sl].copy_(stacked, non_blocking=True)
+            if cuda and sl.stop == B:
+                torch.cuda.current_stream(device).synchronize()
         if b6:
-            SURVEY_COUNTS["chunks"] += 1
-            SURVEY_COUNTS["overlapped"] += int(bool(streams) and i > 0)
+            grouped = -(-(sl.stop - g0) // chunk)
+            SURVEY_COUNTS["chunks"] += grouped
+            SURVEY_COUNTS["overlapped"] += grouped - 1
     res = host.numpy()
     return {
         "N_inflation": res[:, 0].copy(),

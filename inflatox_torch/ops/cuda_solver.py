@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..lowering.special import suppress_domain_warnings
+from ..utils.errors import ShapeError
 from ..utils.profiling import recording
 from .cuda_kernels import LAUNCHES_BY_KERNEL
 
@@ -144,9 +145,48 @@ def embedded(artifact, solver, y, dt, args):
     return small, big
 
 
-def _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver):
+def _check_solver(solver):
+    if solver == "rkf_pallas":
+        raise ValueError(
+            'solver="rkf_pallas" is the JAX package\'s TPU kernel; in the '
+            'PyTorch port solver="rkf" runs kernel B6 (and "rk4" too) on a '
+            "CUDA device"
+        )
     if solver not in METHODS:
         raise ValueError(f'unknown solver {solver!r}; expected "rk4" or "rkf"')
+
+
+def _check_batch(artifact, pars, fields_init, derivatives_init):
+    """The JAX package's shape checks of a batched solve (ShapeError)."""
+    n = artifact.n_fields
+    fields_init = np.asarray(fields_init, dtype=float)
+    derivatives_init = np.asarray(derivatives_init, dtype=float)
+    pars = np.asarray(pars, dtype=float)
+    if fields_init.ndim != 2 or fields_init.shape[1] != n:
+        raise ShapeError(
+            (-1, n), fields_init.shape,
+            "batched initial conditions must be (B, n_fields)",
+        )
+    if derivatives_init.shape != fields_init.shape:
+        raise ShapeError(
+            fields_init.shape, derivatives_init.shape,
+            "derivatives_init must match fields_init (B, n_fields)",
+        )
+    if pars.ndim == 2 and pars.shape != (fields_init.shape[0], artifact.n_parameters):
+        raise ShapeError(
+            (fields_init.shape[0], artifact.n_parameters), pars.shape,
+            "per-trajectory parameters must be (B, n_parameters)",
+        )
+    if pars.ndim == 1 and pars.shape != (artifact.n_parameters,):
+        raise ShapeError(
+            (artifact.n_parameters,), pars.shape,
+            "shared parameters must be (n_parameters,)",
+        )
+    return pars, fields_init, derivatives_init
+
+
+def _check(artifact, pars, steps, fields_init, derivatives_init, max_err, solver):
+    _check_solver(solver)
     steps = int(steps)
     if steps < 1:
         raise ValueError(f"steps must be at least 1, got {steps}")

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.cuda_solver import solve_cuda, solve_torch
+from ..ops.cuda_solver import _check_batch, _check_solver, solve_cuda, solve_torch
 from ..utils.devices import resolve_engine
 from .mesh import check_mesh, gather_shards, launch_shards, pad_rows
 
@@ -61,12 +61,10 @@ def sharded_solve_eom_batch(
     ``engine``: None (kernel B6 on a CUDA slot, the plain version on a CPU
     slot), ``"cuda"`` or ``"torch"``, resolved per slot.  ``interpret`` (the
     JAX package's Pallas interpreter) has no counterpart and raises."""
-    from .. import background  # noqa: PLC0415 — background imports this module
-
     if combine not in ("host", "device"):
         raise ValueError(f"combine must be 'host' or 'device', got {combine!r}")
     check_mesh(mesh)
-    pars, fields_init, derivatives_init = background._check_batch(
+    pars, fields_init, derivatives_init = _check_batch(
         artifact, pars, fields_init, derivatives_init
     )
     if interpret is not None:
@@ -74,7 +72,7 @@ def sharded_solve_eom_batch(
             "interpret= runs the JAX package's Pallas interpreter, which the PyTorch port "
             'does not have: solver="rkf" runs kernel B6 (its plain version on a CPU slot)'
         )
-    background._check_solver(solver)
+    _check_solver(solver)
     slots = mesh.axis_slots(solve_axis)
     n_dev = len(slots)
     B = fields_init.shape[0]

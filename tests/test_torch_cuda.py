@@ -24,7 +24,7 @@ through its reciprocal).  Angular inflation, whose disc metric has a pole
 near the benchmark's starts, runs through B6, B9 and the survey's chunk
 loop at the cell ``angular.survey``'s sizes, and B6's counting instance
 counts its rejected attempts.  A survey of several chunks runs them side
-by side on streams of their own, bit for bit the one-chunk call."""
+by side in one B6 launch, bit for bit the one-chunk call."""
 
 import json
 import os
@@ -209,10 +209,10 @@ def test_background_entry_points_run_the_kernels(doc, cuda_device):
                                              return_time=True)
     single = background.solve_eom(art, args, 60, f0[0], d0[0], solver="rkf")
     survey = background.survey_initial_conditions(art, args, 60, f0, np.zeros(2), chunk=16)
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 2 + 3
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 2 + 1  # three chunks, one launch
     plain = background.solve_eom_batch(art, args, 60, f0, d0, solver="rkf",
                                        return_time=True, engine="torch")
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 5
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before + 3
     np.testing.assert_array_equal(rows, plain[0])
     np.testing.assert_array_equal(times, plain[1])
     np.testing.assert_array_equal(single, rows[0])
@@ -1065,15 +1065,16 @@ def test_b9_many_fields_reads_its_rows_in_place(cuda_device):
 
 
 def test_survey_on_the_card_chunked_as_unchunked(doc, cuda_device):
-    """B = 1000 in chunks of 384 (not a whole number of them): one B6 and
-    one B9 launch a chunk, the summaries bit for bit the unchunked survey's
-    and, row for row, the host's plain reduction of the card's rows."""
+    """B = 1000 in chunks of 384 (not a whole number of them): the three
+    chunks side by side in one B6 and one B9 launch, the summaries bit for
+    bit the unchunked survey's and, row for row, the host's plain reduction
+    of the card's rows."""
     art, args = doc
     f0 = np.random.default_rng(12).uniform(1.5, 2.5, (1000, 2))
     before = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
     got = background.survey_initial_conditions(art, args, 600, f0, np.zeros(2), chunk=384)
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before["B6"] + 3
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == before["B9"] + 3
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == before["B6"] + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == before["B9"] + 1
     whole = background.survey_initial_conditions(art, args, 600, f0, np.zeros(2))
     rows, times = background.solve_eom_batch(art, args, 600, f0, np.zeros((1000, 2)),
                                              solver="rkf", return_time=True)
@@ -1153,9 +1154,9 @@ def test_angular_b9_is_the_host_reduction(angular):
 
 def test_angular_survey_in_two_chunks_is_each_chunks_reduction(angular):
     """The cell's call: 8192 starts in chunks of 4096 through
-    ``survey_initial_conditions`` on the card (two B6 and two B9 launches,
-    one wait), each chunk's summaries those of B9 on that chunk's rows
-    solved alone (B6 is deterministic)."""
+    ``survey_initial_conditions`` on the card (both chunks in one B6 and
+    one B9 launch, one wait), each chunk's summaries those of B9 on that
+    chunk's rows solved alone (B6 is deterministic)."""
     from inflatox_torch.ops.cuda_survey import survey_reduce_cuda
 
     art, pars = angular
@@ -1163,8 +1164,8 @@ def test_angular_survey_in_two_chunks_is_each_chunks_reduction(angular):
     launches = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
     got = background.survey_initial_conditions(art, pars.cpu().numpy(), 2000,
                                                f0.cpu().numpy(), np.zeros(2), chunk=4096)
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == launches["B6"] + 2
-    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == launches["B9"] + 2
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B6"] == launches["B6"] + 1
+    assert cuda_kernels.LAUNCHES_BY_KERNEL["B9"] == launches["B9"] + 1
     for c in range(2):
         sl = slice(4096 * c, 4096 * (c + 1))
         rows, times = solve_cuda(art, pars, 2000, f0[sl], d0[sl], 1e-6, "rkf")
@@ -1177,16 +1178,18 @@ def test_angular_survey_in_two_chunks_is_each_chunks_reduction(angular):
 @pytest.mark.parametrize("case", ["angular", "hyperinflation", "angular-trace"])
 def test_survey_chunks_side_by_side(doc, angular, tmp_path, case):
     """8192 starts, 2000 rows.  In chunks of 4096 and of 3000 (a ragged last
-    chunk), each chunk's B6 and B9 on a side stream of its own: every
-    summary bit for bit the one-chunk call's (chunk 8192, the current
-    stream), on angular inflation and on hyperinflation, and
-    ``survey_counts`` counting every chunk and, for a depth of two or
-    more, every chunk after the first as overlapped.  Under
-    ``profiling.trace``, three of the cell ``angular.survey``'s calls: two
-    ``solve_kernel`` intervals intersect.  (Late in this file's process the
-    trace has been seen to lose the last kernel of a profiled block, so
-    the block holds three calls and the test asks for one intersecting
-    pair of the launches it finds.)"""
+    chunk), k chunks (``_overlap_depth``) side by side in one B6 and one B9
+    launch: every summary bit for bit the one-chunk call's (chunk 8192), on
+    angular inflation and on hyperinflation, and ``survey_counts``
+    counting every chunk and, in each launch, every chunk after its first
+    as overlapped.  Under ``profiling.trace``, three of the cell
+    ``angular.survey``'s calls: one B6 and one B9 launch a call, as
+    ``LAUNCHES_BY_KERNEL`` counts them; in the trace one set of
+    ``inflx.survey.*`` spans a call, and every ``solve_kernel`` and
+    ``survey_reduce_kernel`` over the 256 one-warp blocks of a call's 8192
+    trajectories.  (Late in this file's process
+    the trace has been seen to lose some of a block's kernels, the first
+    or the later calls', so it asks this of the launches it holds.)"""
     if case == "hyperinflation":
         art, args = doc
         f0 = np.random.default_rng(21).uniform(1.5, 2.5, (8192, 2))
@@ -1206,14 +1209,26 @@ def test_survey_chunks_side_by_side(doc, angular, tmp_path, case):
         from inflatox_torch.utils import profiling
 
         survey(4096)  # builds outside the trace
+        launches = dict(cuda_kernels.LAUNCHES_BY_KERNEL)
         with profiling.trace(str(tmp_path), label="overlap"):
             counted = [survey(4096)[1] for _ in range(3)]
         assert counted == [{"chunks": 2, "overlapped": 1}] * 3
+        for name in ("B6", "B9"):
+            assert cuda_kernels.LAUNCHES_BY_KERNEL[name] == launches[name] + 3
         (path,) = tmp_path.glob("overlap*.pt.trace.json")
         events = json.loads(path.read_text())["traceEvents"]
-        solves = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-                        if e.get("cat") == "kernel" and "solve_kernel" in e["name"])
-        assert any(b[0] < a[1] for a, b in zip(solves, solves[1:])), solves
+        spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation"
+                       and e["name"].startswith("inflx.survey."))
+        assert spans == 3 * ["inflx.survey.deliver"] + 3 * ["inflx.survey.reduce"] + 3 * [
+            "inflx.survey.solve"], spans
+        grids = {"solve_kernel": [], "survey_reduce_kernel": []}
+        for e in events:
+            for name, found in grids.items():
+                if e.get("cat") == "kernel" and name in e["name"]:
+                    found.append(e["args"]["grid"])
+        assert any(grids.values()), grids
+        for found in grids.values():
+            assert len(found) <= 3 and all(g == [256, 1, 1] for g in found), grids
         return
     whole, counted = survey(8192)
     assert counted == {"chunks": 1, "overlapped": 0}
@@ -1223,7 +1238,7 @@ def test_survey_chunks_side_by_side(doc, angular, tmp_path, case):
         chunks = -(-8192 // chunk)
         k = background._overlap_depth(4 * props.multi_processor_count, chunk, chunks,
                                       torch.cuda.mem_get_info(0)[0], 2000, 2)
-        assert counted == {"chunks": chunks, "overlapped": chunks - 1 if k >= 2 else 0}
+        assert counted == {"chunks": chunks, "overlapped": chunks - -(-chunks // k)}
         for key in whole:
             assert_same_bits(torch.from_numpy(got[key]), torch.from_numpy(whole[key]))
 

@@ -296,8 +296,8 @@ DEPTHS = {
 
 @pytest.mark.parametrize("case", [*DEPTHS, "cpu-survey"])
 def test_overlap_depth_and_the_cpu_survey(models, case):
-    """The depth of the survey's chunk loop on the card: as many chunks as
-    fill the card's warp schedulers with B6's one-warp blocks, at most the
+    """The survey's chunks a launch on the card: as many chunks as fill
+    the card's warp schedulers with B6's one-warp blocks, at most the
     number of chunks, with their rows within half the free memory, and at
     least one.  A survey on the CPU counts no chunk and returns the plain
     reduction of its solve, chunked as unchunked."""
